@@ -1,0 +1,145 @@
+"""Persistent self-scheduled Mandelbrot: a fixed worker grid, device claims.
+
+Port of ``repro.kernels.mandelbrot.persistent``.  The static entry point
+(``ops.mandelbrot``) launches a thread per pixel.  This variant launches
+``workers`` persistent CTAs and lets the device-window protocol
+(``repro_torch.device``) decide which tiles each one executes: the claim
+loop runs in the protocol kernel, producing per-worker claim tables
+(variable-sized chunks of the linearized tile space); each CTA then walks
+its own table and writes its tiles into the shared counts image.
+
+Pixel math is the one ``escape_count`` device function the static kernel
+calls too, so the two paths are exactly equal.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build
+
+from .ref import escape_counts, geometry
+
+
+def _tile_pixels(tiles: torch.Tensor, gw: int, block_h: int, block_w: int):
+    """(rows, cols) of every pixel of ``tiles`` (row-major tile ids)."""
+    ti = torch.div(tiles, gw, rounding_mode="floor")
+    tj = tiles - ti * gw
+    r = torch.arange(block_h, dtype=torch.int32, device=tiles.device)
+    c = torch.arange(block_w, dtype=torch.int32, device=tiles.device)
+    rows = (ti[:, None, None] * block_h + r[None, :, None]).expand(-1, -1, block_w)
+    cols = (tj[:, None, None] * block_w + c[None, None, :]).expand(-1, block_h, -1)
+    return rows.reshape(-1), cols.reshape(-1)
+
+
+def _persistent_plain(nclaims, starts, sizes, *, width, height, ct, xlim, ylim,
+                      block_h, block_w, gw, device):
+    """The plain version: every worker's claimed tiles, in table order."""
+    tiles = [np.arange(st, st + sz) for w in range(len(nclaims))
+             for st, sz in zip(starts[w, :nclaims[w]], sizes[w, :nclaims[w]])]
+    tiles = torch.as_tensor(np.concatenate(tiles).astype(np.int32), device=device)
+    rows, cols = _tile_pixels(tiles, gw, block_h, block_w)
+    inside = (rows < height) & (cols < width)
+    rows, cols = rows[inside], cols[inside]
+    cnt = escape_counts(rows, cols, ct=ct, width=width, height=height,
+                        xlim=xlim, ylim=ylim)
+    out = torch.zeros((height, width), dtype=torch.int32, device=device)
+    out[rows.long(), cols.long()] = cnt
+    return out
+
+
+def _persistent_cuda(nclaims, starts, sizes, *, width, height, ct, xlim, ylim,
+                     block_h, block_w, gw, device):
+    """Launch ``workers`` persistent CTAs over their claim tables."""
+    W, C = starts.shape
+    nclaims_t = torch.as_tensor(nclaims, device=device)
+    starts_t = torch.as_tensor(starts, device=device)
+    sizes_t = torch.as_tensor(sizes, device=device)
+    for name, t, shape in (("nclaims", nclaims_t, (W,)), ("starts", starts_t, (W, C)),
+                           ("sizes", sizes_t, (W, C))):
+        _build.require_cuda(t, name, torch.int32, shape)
+    out = torch.empty((height, width), dtype=torch.int32, device=device)
+    xmin, dx, ymin, dy = geometry(width, height, xlim, ylim)
+    c_int, c_float, c_ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+    fn = _build.function("mandelbrot", "repro_mandelbrot_persistent", c_int,
+                         c_ptr, c_ptr, c_ptr, c_ptr, *([c_int] * 8),
+                         *([c_float] * 4), c_ptr)
+    err = fn(out.device.index, _build.ptr(out), _build.ptr(nclaims_t),
+             _build.ptr(starts_t), _build.ptr(sizes_t), W, C, gw, block_h,
+             block_w, width, height, ct, xmin, dx, ymin, dy,
+             _build.stream_of(out))
+    _build.check(err, "mandelbrot persistent kernel")
+    _build.LAUNCHES["mandelbrot_persistent"] += 1
+    return out
+
+
+def mandelbrot_persistent(
+    width: int,
+    height: int | None = None,
+    *,
+    ct: int = 1000,
+    xlim=(-2.0, 1.0),
+    ylim=(-1.5, 1.5),
+    block_h: int = 128,
+    block_w: int = 128,
+    technique: str = "gss",
+    workers: int = 4,
+    chunk: int = 1,
+    costs=None,
+    schedule=None,
+    device=None,
+):
+    """Self-scheduled counts image; returns ``(counts, DeviceSchedule)``.
+
+    The loop is the linearized tile grid (N = ceil(h/bh) * ceil(w/bw));
+    ``technique``/``workers``/``chunk`` parameterize the device claim loop.
+    Pass ``schedule`` to reuse a previously-claimed schedule (it must match
+    this grid and cover it), or ``costs`` (length N, per-tile) to shape the
+    assignment.  Runs on ``device`` (default ``"cuda"``): the protocol and
+    persistent kernels on CUDA, their plain versions on the CPU.
+    """
+    from repro_torch.device.persistent import claim_schedule
+
+    height = width if height is None else height
+    device = _build.target_device(device, "mandelbrot_persistent")
+    gh = -(-height // block_h)
+    gw = -(-width // block_w)
+    N = gh * gw
+
+    if schedule is None:
+        schedule = claim_schedule(technique, N, workers, chunk=chunk,
+                                  costs=costs, device=device)
+    if schedule.N != N or schedule.P != workers:
+        raise ValueError(
+            f"schedule is for (N={schedule.N}, P={schedule.P}), "
+            f"this grid needs (N={N}, P={workers})")
+    if int(schedule.sizes.sum()) != N:
+        raise ValueError("schedule does not cover the tile grid "
+                         f"({int(schedule.sizes.sum())} of {N} tiles)")
+    nclaims, starts, sizes = schedule.worker_lists()
+    run = _persistent_plain if device.type == "cpu" else _persistent_cuda
+    out = run(nclaims, starts, sizes, width=width, height=height, ct=ct,
+              xlim=xlim, ylim=ylim, block_h=block_h, block_w=block_w, gw=gw,
+              device=device)
+    return out, schedule
+
+
+def mandelbrot_tile_costs(counts, block_h: int = 128, block_w: int = 128):
+    """Per-tile cost model from a counts image: total escape iterations.
+
+    Linearized row-major over the tile grid (float64 numpy) -- feed to
+    ``claim_schedule`` / ``mandelbrot_persistent(costs=...)`` so the claim
+    loop sees the real variable-cost profile.
+    """
+    if isinstance(counts, torch.Tensor):
+        counts = counts.cpu().numpy()
+    counts = np.asarray(counts)
+    h, w = counts.shape
+    gh = -(-h // block_h)
+    gw = -(-w // block_w)
+    padded = np.zeros((gh * block_h, gw * block_w), np.float64)
+    padded[:h, :w] = counts
+    return (padded.reshape(gh, block_h, gw, block_w)
+                  .sum(axis=(1, 3)).reshape(gh * gw))
