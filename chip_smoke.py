@@ -17,14 +17,26 @@ protocol and applications through the port's public entry points:
   3. the static Mandelbrot kernel at 4096x4096, CT 2000;
   4. the persistent Mandelbrot kernel over the gss and fac2 schedules;
   5. PSIA spin images: 800,000 points (the paper's object size) and 8,192
-     images, W=5, support angle 2.0, bin size 0.05.
+     images, W=5, support angle 2.0, bin size 0.05;
+  6. the tinyllama-1.1b forward at full width (22 layers, B=4 prompts of
+     2048 tokens, random weights from seed 0) through ``api.forward`` with
+     ``backend="pallas"`` (the static attention kernel in every layer) and
+     ``backend="xla"`` (plain-tensor attention);
+  7. attention at tinyllama-1.1b's geometry (H=32, Hkv=4, D=64, T=2048,
+     blocks 128x128) through ``flash_attention`` -- causal f32 and bf16
+     (B=4), a sliding window of 512 and a non-causal Tq != Tk case -- and
+     through ``flash_attention_persistent`` over a varlen batch (B=16,
+     lengths drawn from seed 0) claimed by the device loop with gss, fac2
+     and ss at P = the SM count.
 
-The launch counts are zeroed just before phases 2-5 and read just after.
-Every kernel is then held against its plain PyTorch version on the same
-inputs, every schedule against the host plan, and each kernel is timed
-with CUDA events beside its plain version and its bound.  The script exits
-non-zero without a result line when there is no card or no package beside
-it, and on any failed check.
+The launch counts are zeroed just before each path (2-5, 6, 7) and read
+just after.  Every kernel is then held against its plain PyTorch version
+on the same inputs, every schedule against the host plan, the two model
+backends against each other, and each kernel is timed with CUDA events
+beside its plain version, its bound and, for attention, PyTorch's
+``scaled_dot_product_attention`` (a yardstick only; the port never calls
+it).  The script exits non-zero without a result line when there is no
+card or no package beside it, and on any failed check.
 """
 from __future__ import annotations
 
@@ -40,6 +52,11 @@ from pathlib import Path
 # rate without FMA (half the 67 TFLOP/s FMA rate).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12 / 2
+# Attention's multiply-adds could run as FMAs: its operations count at the
+# f32 rate of 67 TFLOP/s, and for bf16 inputs at the 989 TFLOP/s bf16
+# tensor-core rate.
+F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 
 TECHNIQUES = ("static", "ss", "gss", "tss", "fac2")
 IMG, CT, TILE = 4096, 2000, 64
@@ -54,11 +71,13 @@ def check(cond, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def cuda_ms(fn, reps: int = REPS):
-    """Median of ``reps`` CUDA-event timings of ``fn()`` after one warm-up."""
+def cuda_ms(fn, reps: int = REPS, warmup: bool = True):
+    """Median of ``reps`` CUDA-event timings of ``fn()``, after one warm-up
+    unless ``warmup`` is false."""
     import torch
 
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -83,16 +102,277 @@ def host_ms(fn, reps: int = REPS):
     return statistics.median(times)
 
 
-def bound(nbytes: float, ops: float):
-    """(bound_ms, bound_by): the larger of bytes / HBM rate, ops / f32 rate."""
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
+    """(bound_ms, bound_by): the larger of bytes / HBM rate, ops / op rate."""
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def kernel_row(name, source, replaces, launches, max_abs_err, ms, plain_ms,
+               bound_ms_by, library_ms, plain_where="card"):
+    """One entry of the ``kernels`` result line, printed as it is made."""
+    b_ms, b_by = bound_ms_by
+    print(f"time {name}: {ms!r} ms; plain ({plain_where}) {plain_ms!r} ms; "
+          f"bound {b_ms!r} ms ({b_by}); library {library_ms!r} ms")
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=launches, max_abs_err=max_abs_err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms)
 
 
 def claims_in_grant_order(rep):
     rows = sorted((c.step, pe, c.start, c.size)
                   for pe, per in enumerate(rep.per_pe_claims) for c in per)
     return [list(col) for col in zip(*rows)]
+
+
+# attention at tinyllama-1.1b's geometry; the varlen draw of
+# benchmarks/kernels_selfsched.py:86-88 (lengths first, from seed 0)
+ATT_H, ATT_HKV, ATT_D, ATT_T, ATT_BLK = 32, 4, 64, 2048, 128
+ATT_B, VARLEN_B, SWA, PERSISTENT_TECHNIQUES = 4, 16, 512, ("gss", "fac2", "ss")
+FA_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+MODEL, MODEL_B, MODEL_T = "tinyllama-1.1b", 4, 2048
+
+
+def close(a, b, atol: float, rtol: float = 0.0):
+    """(all |a - b| <= atol + rtol * |b|, max |a - b|) over f32 copies."""
+    a, b = a.float(), b.float()
+    d = (a - b).abs()
+    return bool((d <= atol + rtol * b.abs()).all()), float(d.max())
+
+
+def causal_pairs(T: int, L: int) -> int:
+    """(row, key) pairs a causal head of T rows attends over L valid keys."""
+    return L * (L + 1) // 2 + (T - L) * L
+
+
+def sdpa_ms(q, k, v, **kw):
+    """CUDA-event time of PyTorch's fused attention on the same inputs: the
+    yardstick for ``library_ms``."""
+    import torch.nn.functional as F
+
+    return cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True,
+                                                          **kw))
+
+
+def attention_path(dev, P: int, static_launches: int):
+    """Phase 7: both attention kernels at tinyllama-1.1b's geometry, checked
+    against their plain versions and the dense oracle, then timed.
+    ``static_launches`` is the static kernel's count on the model path, the
+    real caller of it; returns the two kernel rows."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import (
+        _build, attention_oracle, flash_attention, flash_attention_persistent)
+    from repro_torch.kernels.flash_attention.kernel import _flash_plain
+    from repro_torch.kernels.flash_attention.persistent import (
+        _persistent_cuda, _persistent_plain, varlen_tile_costs)
+
+    H, Hkv, D, T, blk, B, VB = ATT_H, ATT_HKV, ATT_D, ATT_T, ATT_BLK, ATT_B, VARLEN_B
+    nq, scale = T // blk, D ** -0.5
+    lengths = np.random.default_rng(0).integers(T // 8, T + 1, VB).astype(np.int32)
+    g = torch.Generator(device=dev).manual_seed(0)
+    qv = torch.randn((VB, H, T, D), generator=g, device=dev)
+    kv, vv = (torch.randn((VB, Hkv, T, D), generator=g, device=dev) for _ in range(2))
+    q, k, v = qv[:B], kv[:B], vv[:B]
+    qc = qv[B:B + 2, :, :T // 2].contiguous()  # Tq = 1024 against Tk = 2048
+    q16, k16, v16, qv16, kv16, vv16 = (
+        t.to(torch.bfloat16) for t in (q, k, v, qv, kv, vv))
+    torch.cuda.synchronize()
+
+    _build.reset_launches()
+    t_path = time.perf_counter()
+    blocks = {"blk_q": blk, "blk_k": blk}
+    static = {
+        "f32": flash_attention(q, k, v, causal=True, **blocks),
+        "bf16": flash_attention(q16, k16, v16, causal=True, **blocks),
+        "swa": flash_attention(q[:2], k[:2], v[:2], causal=True, window=SWA, **blocks),
+        "cross": flash_attention(qc, k[:2], v[:2], causal=False, **blocks),
+    }
+    pers = {t: flash_attention_persistent(qv, kv, vv, lengths=lengths, causal=True,
+                                          technique=t, workers=P, **blocks)
+            for t in PERSISTENT_TECHNIQUES}
+    pers16, sched16 = flash_attention_persistent(qv16, kv16, vv16, lengths=lengths,
+                                                 causal=True, workers=P, **blocks)
+    full, _ = flash_attention_persistent(q, k, v, causal=True, workers=P, **blocks)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"attention path: {time.perf_counter() - t_path:.2f} s wall, launches "
+          f"{ {n: launches[n] for n in ('protocol', 'flash_attention', 'flash_attention_persistent')} }")
+    for n in ("protocol", "flash_attention", "flash_attention_persistent"):
+        check(launches[n] > 0, f"kernel {n} was not launched on the attention path")
+
+    # checks: the static kernel against its plain version and the oracle
+    cases = {"f32": ((q, k, v), {"causal": True}, 2e-5, 2e-5),
+             "bf16": ((q16, k16, v16), {"causal": True}, 3e-2, 0.0),
+             "swa": ((q[:2], k[:2], v[:2]), {"causal": True, "window": SWA}, 2e-5, 2e-5),
+             "cross": ((qc, k[:2], v[:2]), {"causal": False}, 2e-5, 2e-5)}
+    for _, kw, _, _ in cases.values():
+        kw.update(blocks)
+    err = {}
+    for name, (args, kw, atol, rtol) in cases.items():
+        out = static[name]
+        check(out.shape == args[0].shape and out.dtype == args[0].dtype
+              and bool(out.isfinite().all()), f"static {name}: shape, dtype, finite")
+        ok, err[name] = close(out, _flash_plain(*args, **kw), atol, rtol)
+        check(ok, f"static {name}: kernel == plain within {atol} (max {err[name]!r})")
+        print(f"flash_attention {name} {tuple(args[0].shape)} {kw}: max |kernel - "
+              f"plain| {err[name]!r} (bar {atol})")
+    ok, d = close(static["f32"], attention_oracle(q, k, v, causal=True), 2e-5, 2e-5)
+    check(ok, f"static f32: kernel == dense oracle within 2e-5 (max {d!r})")
+
+    # checks: the persistent kernel over the varlen batch
+    N = VB * H * nq
+    costs = varlen_tile_costs(lengths, H, nq, blk, blk, True)
+    refs = [attention_oracle(qv[b:b + 1], kv[b:b + 1, :, :L], vv[b:b + 1, :, :L],
+                             causal=True) for b, L in enumerate(lengths)]
+    for t, (out, sched) in pers.items():
+        check(int(sched.sizes.sum()) == N, f"persistent {t}: sizes.sum() == N")
+        d_ref = max(close(out[b:b + 1], r, 1e-5)[1] for b, r in enumerate(refs))
+        check(d_ref <= 1e-5, f"persistent {t}: rows == oracle within 1e-5 (max {d_ref!r})")
+        ok, d_plain = close(out, _persistent_plain(
+            *sched.worker_lists(), qv, kv, vv, lengths, causal=True, scale=scale,
+            blk_q=blk, blk_k=blk), 1e-5)
+        check(ok, f"persistent {t}: kernel == plain within 1e-5 (max {d_plain!r})")
+        err.setdefault("persistent_f32", d_plain)
+        print(f"schedule {t}: N={N} P={P} steps={sched.n_steps} modeled makespan / "
+              f"ideal {float(sched.makespan() / (costs.sum() / P))!r}; max |kernel - "
+              f"oracle| {d_ref!r}, |kernel - plain| {d_plain!r}")
+    ok, d = close(full, static["f32"], 1e-5)
+    check(ok, f"persistent (full lengths) == static within 1e-5 (max {d!r})")
+    tables16 = sched16.worker_lists()
+    ok, err["persistent_bf16"] = close(pers16, _persistent_plain(
+        *tables16, qv16, kv16, vv16, lengths, causal=True, scale=scale,
+        blk_q=blk, blk_k=blk), 3e-2)
+    check(ok, f"persistent bf16: kernel == plain within 3e-2 "
+              f"(max {err['persistent_bf16']!r})")
+    print(f"persistent (full lengths) == static: max {d!r}; bf16 kernel vs "
+          f"plain {err['persistent_bf16']!r}")
+
+    # times: bf16 (the model's type) in the rows, f32 printed beside them
+    def persistent_ms(tables, args):
+        return cuda_ms(lambda: _persistent_cuda(*tables, *args, lengths, causal=True,
+                                                scale=scale, blk_q=blk, blk_k=blk))
+
+    pairs = B * H * causal_pairs(T, T)
+    var_pairs = H * sum(causal_pairs(T, int(L)) for L in lengths)
+    cols = torch.arange(T, device=dev)
+    var_mask = ((cols[None, :] <= cols[:, None])[None, None]
+                & (cols < torch.as_tensor(lengths, device=dev)[:, None, None, None]))
+    out_rows = []
+    for dt, (sq, sk, sv, lq, lk, lv), rate in (
+            ("f32", (q, k, v, qv, kv, vv), F32_FLOPS_PER_S),
+            ("bf16", (q16, k16, v16, qv16, kv16, vv16), BF16_FLOPS_PER_S)):
+        size = sq.element_size()
+        ms = cuda_ms(lambda: flash_attention(sq, sk, sv, causal=True, **blocks))
+        plain = cuda_ms(lambda: _flash_plain(sq, sk, sv, causal=True, **blocks))
+        lib = sdpa_ms(sq, sk, sv, is_causal=True)
+        b_static = bound(size * 2 * (sq.numel() + sk.numel()), 4 * D * pairs, rate)
+        print(f"time flash_attention {dt} B={B}: {ms!r} ms; plain {plain!r} ms; "
+              f"sdpa {lib!r} ms; bound {b_static[0]!r} ms ({b_static[1]})")
+        tables = sched16.worker_lists() if dt == "bf16" else pers["gss"][1].worker_lists()
+        for t in PERSISTENT_TECHNIQUES:
+            print(f"time flash_attention_persistent {dt} over the {t} schedule: "
+                  f"{persistent_ms(pers[t][1].worker_lists(), (lq, lk, lv))!r} ms")
+        p_ms = persistent_ms(tables, (lq, lk, lv))
+        p_plain = cuda_ms(lambda: _persistent_plain(
+            *tables, lq, lk, lv, lengths, causal=True, scale=scale, blk_q=blk, blk_k=blk))
+        p_static = cuda_ms(lambda: flash_attention(lq, lk, lv, causal=True, **blocks))
+        p_lib = sdpa_ms(lq, lk, lv, attn_mask=var_mask)
+        b_var = bound(size * 2 * (lq.numel() + lk.numel())
+                      + 4 * (VB + P + 2 * tables[1].size), 4 * D * var_pairs, rate)
+        print(f"time varlen {dt} B={VB}: persistent (gss) {p_ms!r} ms; static over "
+              f"the padded batch {p_static!r} ms; plain {p_plain!r} ms; sdpa with a "
+              f"length mask {p_lib!r} ms; bound {b_var[0]!r} ms ({b_var[1]})")
+    # the loop leaves the bf16 numbers: those are the rows
+    out_rows.append(kernel_row(
+        "flash_attention", FA_SOURCE, "src/repro/kernels/flash_attention/kernel.py:27",
+        static_launches, err["bf16"], ms, plain, b_static, lib))
+    out_rows.append(kernel_row(
+        "flash_attention_persistent", FA_SOURCE,
+        "src/repro/kernels/flash_attention/persistent.py:30",
+        launches["flash_attention_persistent"], err["persistent_bf16"], p_ms,
+        p_plain, b_var, p_lib))
+    return out_rows
+
+
+def _to_dtype(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _to_dtype(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_dtype(v, dtype) for v in tree]
+    return tree.to(dtype)
+
+
+def model_path(dev) -> int:
+    """Phase 6: tinyllama-1.1b at full width through ``api.forward``; the two
+    attention backends must agree in f32.  Returns the static kernel's
+    launches on this path."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import api
+
+    cfg = get_config(MODEL)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    batch = {"tokens": np.random.default_rng(0).integers(
+        0, cfg.vocab, (MODEL_B, MODEL_T)).astype(np.int32)}
+    torch.cuda.synchronize()
+
+    _build.reset_launches()
+    t_path = time.perf_counter()
+    params = api.init_params(torch.Generator(device=dev).manual_seed(0), cfg32,
+                             device=dev)
+    pallas = api.forward(params, cfg32, batch, backend="pallas")
+    xla = api.forward(params, cfg32, batch, backend="xla")
+    torch.cuda.synchronize()
+    launches = _build.LAUNCHES["flash_attention"]
+    print(f"model path: {MODEL} f32, {cfg.n_layers} layers, B={MODEL_B} x "
+          f"T={MODEL_T}: {time.perf_counter() - t_path:.2f} s wall (init + two "
+          f"forwards), flash_attention launches {launches}")
+    check(launches == cfg.n_layers, f"one static kernel launch per layer ({launches})")
+    shape = (MODEL_B, MODEL_T, cfg.vocab)
+    for name, out in (("pallas", pallas), ("xla", xla)):
+        check(tuple(out.shape) == shape and bool(out.isfinite().all()),
+              f"{name} logits: shape {shape}, finite")
+    top = float(xla.abs().max())
+    d = float((pallas - xla).abs().max())
+    agree = float((pallas.argmax(-1) == xla.argmax(-1)).double().mean())
+    print(f"model f32: max |pallas - xla| {d!r} = {d / top!r} of max |logit| "
+          f"{top!r}; greedy argmax agrees on {agree!r} of positions")
+    check(d <= 1e-3 * top, "model f32: backends agree within 1e-3 of max |logit|")
+    check(agree >= 0.999, "model f32: argmax agrees on >= 99.9 % of positions")
+    del pallas, xla
+
+    params = _to_dtype(params, torch.bfloat16)  # the config's dtype
+    torch.cuda.synchronize()
+    outs = {}
+    for backend in ("pallas", "xla"):
+        outs[backend] = api.forward(params, cfg, batch, backend=backend)  # warm-up
+        torch.cuda.synchronize()
+        dev_ms, wall_ms = [], []
+        for _ in range(REPS):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            a.record()
+            api.forward(params, cfg, batch, backend=backend)
+            b.record()
+            b.synchronize()
+            wall_ms.append((time.perf_counter() - t0) * 1e3)
+            dev_ms.append(a.elapsed_time(b))
+        print(f"time model bf16 forward ({backend}): "
+              f"{statistics.median(dev_ms)!r} ms CUDA events, "
+              f"{statistics.median(wall_ms)!r} ms wall")
+    print(f"model bf16: max |pallas - xla| "
+          f"{float((outs['pallas'] - outs['xla']).abs().max())!r} of max |logit| "
+          f"{float(outs['xla'].abs().max())!r}")
+    return launches
 
 
 def main() -> int:
@@ -171,8 +451,9 @@ def main() -> int:
     main_s = time.perf_counter() - t_main
     launches = dict(_build.LAUNCHES)
     print(f"main path: {main_s:.2f} s wall, launches {launches}")
-    for k, v in launches.items():
-        check(v > 0, f"kernel {k} was not launched on the main path")
+    for k in ("window_fetch_add", "protocol", "mandelbrot_static",
+              "mandelbrot_persistent", "spin_image"):
+        check(launches[k] > 0, f"kernel {k} was not launched on the main path")
 
     err = {}  # kernel -> max |kernel - plain| over this run's outputs
     # -- 2. checks: schedules ----------------------------------------------
@@ -263,13 +544,8 @@ def main() -> int:
     rows = []
 
     def row(name, source, replaces, ms, plain_ms, nbytes, ops, plain_where="card"):
-        b_ms, b_by = bound(nbytes, ops)
-        rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                         launches=launches[name], max_abs_err=err[name], ms=ms,
-                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=None))
-        print(f"time {name}: {ms!r} ms; plain ({plain_where}) {plain_ms!r} ms; "
-              f"bound {b_ms!r} ms ({b_by}); library_ms null")
+        rows.append(kernel_row(name, source, replaces, launches[name], err[name],
+                               ms, plain_ms, bound(nbytes, ops), None, plain_where))
 
     # window fetch-add: one host RMW (launch + 4-byte read back)
     row("window_fetch_add", "src/repro_torch/csrc/window.cu",
@@ -295,11 +571,15 @@ def main() -> int:
     print(f"  protocol is latency-bound: {n_steps} dependent steps of two "
           f"global atomics each ({proto_ms * 1e3 / n_steps!r} us/step)")
 
+    # The plain versions of the applications take seconds where the kernels
+    # take milliseconds; each already ran once in its check above, so one
+    # timed run of each is enough.
+    once = {"reps": 1, "warmup": False}
     mb_bytes = 4 * IMG * IMG
     row("mandelbrot_static", "src/repro_torch/csrc/mandelbrot.cu",
         "src/repro/kernels/mandelbrot/kernel.py:81",
         cuda_ms(lambda: mandelbrot(IMG, ct=CT)),
-        cuda_ms(lambda: mandelbrot_ref(IMG, ct=CT)),
+        cuda_ms(lambda: mandelbrot_ref(IMG, ct=CT), **once),
         mb_bytes, MANDEL_OPS_PER_ITER * sum_counts)
 
     def persistent_ms(t):
@@ -319,7 +599,7 @@ def main() -> int:
         cuda_ms(lambda: _persistent_plain(
             nclaims, pst, psz, width=IMG, height=IMG, ct=CT, xlim=(-2.0, 1.0),
             ylim=(-1.5, 1.5), block_h=TILE, block_w=TILE, gw=IMG // TILE,
-            device=dev)),
+            device=dev), **once),
         mb_bytes + 4 * (P + 2 * pst.size), MANDEL_OPS_PER_ITER * sum_counts)
     row("spin_image", "src/repro_torch/csrc/spin_image.cu",
         "src/repro/kernels/spin_image/kernel.py:31",
@@ -327,9 +607,14 @@ def main() -> int:
                                     bin_size=BIN, support_angle=SUPPORT)),
         cuda_ms(lambda: spin_images_oracle(
             points, normals, N_IMAGES, img_width=IMG_W, bin_size=BIN,
-            support_angle=SUPPORT, point_chunk=4096)),
+            support_angle=SUPPORT, point_chunk=4096), **once),
         24 * N_POINTS + 4 * N_IMAGES * IMG_W * IMG_W,
         SPIN_OPS_PER_PAIR * N_IMAGES * N_POINTS)
+
+    # f32 products in full f32 on both sides (TF32 off, PyTorch's default)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows += attention_path(dev, P, static_launches=model_path(dev))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -1,17 +1,20 @@
-"""The paper's two applications as hand-written CUDA kernels for Hopper.
+"""The repo's TPU kernels as hand-written CUDA kernels for Hopper.
 
-Port of ``repro.kernels`` (this slice: the two applications; attention and
-the SSD scan are still queued in ROADMAP.md):
+Port of ``repro.kernels`` (the SSD scan is still queued in ROADMAP.md):
 
-  mandelbrot -- paper app 2: escape-time z<-z^4+c (variable-cost loop),
-                static grid and persistent self-scheduled grid
-  spin_image -- paper app 1: PSIA spin images, shared-memory histogram
+  mandelbrot      -- paper app 2: escape-time z<-z^4+c (variable-cost loop),
+                     static grid and persistent self-scheduled grid
+  spin_image      -- paper app 1: PSIA spin images, shared-memory histogram
+  flash_attention -- fused attention (causal/SWA/GQA), static grid and
+                     persistent self-scheduled grid over varlen batches
 
 Each entry point runs on the card unless given CPU tensors or
 ``device="cpu"``, where the kernel's plain PyTorch version runs.  The CUDA
 sources are in ``repro_torch/csrc`` and are built at first use
 (``_build``).
 """
+from .flash_attention.ops import attention_oracle, flash_attention  # noqa: F401
+from .flash_attention.persistent import flash_attention_persistent  # noqa: F401
 from .mandelbrot.ops import mandelbrot, mandelbrot_ref  # noqa: F401
 from .mandelbrot.persistent import mandelbrot_persistent  # noqa: F401
 from .spin_image.ops import spin_images, spin_images_oracle  # noqa: F401

@@ -37,6 +37,7 @@ SOURCES = {
     "protocol": "protocol.cu",
     "mandelbrot": "mandelbrot.cu",
     "spin_image": "spin_image.cu",
+    "flash_attention": "flash_attention.cu",
 }
 
 NVCC_FLAGS = (
@@ -51,6 +52,8 @@ LAUNCHES: Dict[str, int] = {
     "mandelbrot_static": 0,
     "mandelbrot_persistent": 0,
     "spin_image": 0,
+    "flash_attention": 0,
+    "flash_attention_persistent": 0,
 }
 
 #: library name -> nvcc's output (``-Xptxas -v``: registers, shared memory)

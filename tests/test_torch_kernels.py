@@ -114,13 +114,32 @@ def test_spin_images_host_input_on_cpu_when_asked(kind):
 
 
 @pytest.mark.parametrize("entry", ["spin_images", "spin_images_oracle",
-                                   "mandelbrot", "mandelbrot_persistent"])
+                                   "mandelbrot", "mandelbrot_persistent",
+                                   "flash_attention", "attention_oracle",
+                                   "flash_attention_persistent",
+                                   "models.api.forward",
+                                   "models.params.params_from_numpy"])
 def test_kernel_entry_points_default_to_the_card(monkeypatch, entry):
     """Without a card the default raises instead of running the plain
-    version: numpy input has no device, so it goes to "cuda"."""
+    version: numpy input has no device, so it goes to "cuda"; the model's
+    params are made on (or carried to) "cuda" unless told otherwise."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.models.params import params_from_numpy
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     pts, nrm = cloud(32)
+    q = np.zeros((1, 2, 16, 8), np.float32)
+    kv = np.zeros((1, 1, 16, 8), np.float32)
+    cfg = get_config("tinyllama-1.1b").reduced(n_layers=1)
+    tokens = {"tokens": np.zeros((1, 4), np.int32)}
     call = {
+        "flash_attention": lambda: tk.flash_attention(q, kv, kv),
+        "attention_oracle": lambda: tk.attention_oracle(q, kv, kv),
+        "flash_attention_persistent": lambda: tk.flash_attention_persistent(q, kv, kv),
+        "models.api.forward": lambda: api.forward(api.init_params(0, cfg), cfg, tokens),
+        "models.params.params_from_numpy": lambda: params_from_numpy(
+            {"layers": {}}, cfg),
         "spin_images": lambda: tk.spin_images(pts, nrm, 4),
         "spin_images_oracle": lambda: tk.spin_images_oracle(pts, nrm, 4),
         "mandelbrot": lambda: tk.mandelbrot(32, ct=5),
