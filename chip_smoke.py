@@ -27,9 +27,17 @@ protocol and applications through the port's public entry points:
      (B=4), a sliding window of 512 and a non-causal Tq != Tk case -- and
      through ``flash_attention_persistent`` over a varlen batch (B=16,
      lengths drawn from seed 0) claimed by the device loop with gss, fac2
-     and ss at P = the SM count.
+     and ss at P = the SM count;
+  8. mamba2-370m at full width (48 layers, d_model 1024, 32 SSD heads of
+     dim 64, state 128; random weights from seed 0): ``api.forward`` on
+     B=4 prompts of 2048 tokens with ``backend="pallas"`` (the SSD scan
+     kernel in every layer) and ``backend="xla"``; ``api.prefill`` over
+     1024 tokens and one ``decode_step`` against the forward; the serving
+     engine (``Engine(backend="pallas")``) behind a ``ContinuousBatcher``
+     of 4 workers over 64 requests (gss, then the static split); and the
+     SSD scan kernel alone at the model's geometry.
 
-The launch counts are zeroed just before each path (2-5, 6, 7) and read
+The launch counts are zeroed just before each path (2-5, 6, 7, 8) and read
 just after.  Every kernel is then held against its plain PyTorch version
 on the same inputs, every schedule against the host plan, the two model
 backends against each other, and each kernel is timed with CUDA events
@@ -132,6 +140,15 @@ ATT_H, ATT_HKV, ATT_D, ATT_T, ATT_BLK = 32, 4, 64, 2048, 128
 ATT_B, VARLEN_B, SWA, PERSISTENT_TECHNIQUES = 4, 16, 512, ("gss", "fac2", "ss")
 FA_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 MODEL, MODEL_B, MODEL_T = "tinyllama-1.1b", 4, 2048
+# mamba2-370m: the forward, prefill/decode and serving phase
+SSM_MODEL, SSM_B, SSM_T, SSM_PREFIX = "mamba2-370m", 4, 2048, 1024
+SERVE_N, SERVE_PROMPT, SERVE_WORKERS, SERVE_MAX_NEW = 64, 512, 4, (8, 64)
+SSD_SOURCE = "src/repro_torch/csrc/ssd_scan.cu"
+SSD_CHUNK = 128
+# prefill and decode against the forward, of max |logit|: sound runs on the
+# H100 read at most 1.0e-6 (prefill) and 2.5e-5 (decode); the planted decode
+# faults of phase 8 must read above the decode bar
+PREFILL_DECODE_BARS = {"prefill": 2e-5, "decode": 2e-4}
 
 
 def close(a, b, atol: float, rtol: float = 0.0):
@@ -297,14 +314,6 @@ def attention_path(dev, P: int, static_launches: int):
     return out_rows
 
 
-def _to_dtype(tree, dtype):
-    if isinstance(tree, dict):
-        return {k: _to_dtype(v, dtype) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to_dtype(v, dtype) for v in tree]
-    return tree.to(dtype)
-
-
 def model_path(dev) -> int:
     """Phase 6: tinyllama-1.1b at full width through ``api.forward``; the two
     attention backends must agree in f32.  Returns the static kernel's
@@ -317,6 +326,7 @@ def model_path(dev) -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.models import api
+    from repro_torch.models.params import cast
 
     cfg = get_config(MODEL)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -349,30 +359,275 @@ def model_path(dev) -> int:
     check(agree >= 0.999, "model f32: argmax agrees on >= 99.9 % of positions")
     del pallas, xla
 
-    params = _to_dtype(params, torch.bfloat16)  # the config's dtype
+    params = cast(params, torch.bfloat16)  # the config's dtype
     torch.cuda.synchronize()
-    outs = {}
-    for backend in ("pallas", "xla"):
-        outs[backend] = api.forward(params, cfg, batch, backend=backend)  # warm-up
-        torch.cuda.synchronize()
-        dev_ms, wall_ms = [], []
-        for _ in range(REPS):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            t0 = time.perf_counter()
-            a.record()
-            api.forward(params, cfg, batch, backend=backend)
-            b.record()
-            b.synchronize()
-            wall_ms.append((time.perf_counter() - t0) * 1e3)
-            dev_ms.append(a.elapsed_time(b))
-        print(f"time model bf16 forward ({backend}): "
-              f"{statistics.median(dev_ms)!r} ms CUDA events, "
-              f"{statistics.median(wall_ms)!r} ms wall")
+    outs = {b: forward_times(params, cfg, batch, b, "model bf16")
+            for b in ("pallas", "xla")}
     print(f"model bf16: max |pallas - xla| "
           f"{float((outs['pallas'] - outs['xla']).abs().max())!r} of max |logit| "
           f"{float(outs['xla'].abs().max())!r}")
     return launches
+
+
+def forward_times(params, cfg, batch, backend, what):
+    """Time ``api.forward`` (CUDA events and wall clock, median of REPS after
+    a warm-up); returns the warm-up's logits."""
+    import torch
+
+    from repro_torch.models import api
+
+    out = api.forward(params, cfg, batch, backend=backend)
+    torch.cuda.synchronize()
+    dev_ms, wall_ms = [], []
+    for _ in range(REPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        api.forward(params, cfg, batch, backend=backend)
+        b.record()
+        b.synchronize()
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+        dev_ms.append(a.elapsed_time(b))
+    print(f"time {what} forward ({backend}): {statistics.median(dev_ms)!r} ms CUDA "
+          f"events, {statistics.median(wall_ms)!r} ms wall")
+    return out
+
+
+def ssd_flops(B, T, H, Dh, S, L):
+    """The SSD scan's operations: its four products per (batch, head,
+    chunk) of n valid rows, with C.B^T and W.x over the n(n+1)/2 causal
+    (row, key) pairs only, as ``causal_pairs`` counts attention:
+    2*(n(n+1)/2)*(S + Dh) + 4*n*S*Dh.  A ragged last chunk counts its
+    valid rows."""
+    def chunk(n):
+        return 2 * (n * (n + 1) // 2) * (S + Dh) + 4 * n * S * Dh
+
+    return B * H * ((T // L) * chunk(L) + (chunk(T % L) if T % L else 0))
+
+
+def ssd_inputs(B, T, H, Dh, S, dev, dtype, seed=0):
+    """tests/test_kernels.py::_ssd_inputs (numpy from ``seed``) on the card;
+    A stays f32."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    arrays = (rng.normal(size=(B, T, H, Dh)), rng.uniform(0.001, 0.1, size=(B, T, H)),
+              -rng.uniform(0.5, 2.0, size=(H,)), rng.normal(size=(B, T, S)),
+              rng.normal(size=(B, T, S)))
+    x, dt, A, Bm, Cm = (torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrays)
+    return x.to(dtype), dt.to(dtype), A, Bm.to(dtype), Cm.to(dtype)
+
+
+def ssd_kernel_path(dev, cfg, launches: int):
+    """Phase 8, the kernel alone at mamba2-370m's geometry: checked against
+    its plain version (f32, bf16, ragged T, the two decay limits), then
+    timed beside it and its bound.  ``launches`` is the kernel's count on
+    the model's forward, its real caller; returns the kernel's row."""
+    import torch
+
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.kernels.ssd_scan.kernel import _ssd_plain
+
+    B, T, H, Dh, S, L = SSM_B, SSM_T, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, SSD_CHUNK
+    tol = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (3e-2, 1e-2)}
+    err, times = {}, {}
+    for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        args = ssd_inputs(B, T, H, Dh, S, dev, dtype)
+        y = ssd_scan(*args, chunk=L)
+        plain = _ssd_plain(*args, chunk=L)
+        check(y.shape == args[0].shape and y.dtype == dtype and bool(y.isfinite().all()),
+              f"ssd_scan {name}: shape, dtype, finite")
+        ok, err[name] = close(y, plain, *tol[dtype])
+        check(ok, f"ssd_scan {name}: kernel == plain within {tol[dtype]} (max {err[name]!r})")
+        size = args[0].element_size()
+        nbytes = size * (2 * args[0].numel() + args[1].numel() + 2 * args[3].numel()) + 4 * H
+        rate = F32_FLOPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
+        times[name] = (cuda_ms(lambda: ssd_scan(*args, chunk=L)),
+                       cuda_ms(lambda: _ssd_plain(*args, chunk=L)),
+                       bound(nbytes, ssd_flops(B, T, H, Dh, S, L), rate))
+        print(f"ssd_scan {name} x {tuple(args[0].shape)} S={S} chunk={L}: max |kernel - "
+              f"plain| {err[name]!r} (bar {tol[dtype]}); kernel {times[name][0]!r} ms, "
+              f"plain {times[name][1]!r} ms, bound {times[name][2][0]!r} ms "
+              f"({times[name][2][1]}; {ssd_flops(B, T, H, Dh, S, L)} operations, "
+              f"{nbytes} bytes)")
+    # ragged T and the decay limits (tests/test_kernels.py:190-201)
+    args = ssd_inputs(B, 2000, H, Dh, S, dev, torch.float32, seed=1)
+    ok, d = close(ssd_scan(*args, chunk=L), _ssd_plain(*args, chunk=L), 2e-4, 2e-4)
+    check(ok, f"ssd_scan ragged T=2000: kernel == plain within 2e-4 (max {d!r})")
+    x, dt, A, Bm, Cm = args
+    tiny = float(ssd_scan(x, dt * 1e-8, A, Bm, Cm, chunk=L).abs().max())
+    check(tiny < 1e-5, f"ssd_scan dt -> 0: output ~0 (max {tiny!r})")
+    forget = ssd_scan(x, dt, torch.full_like(A, -1e5), Bm, Cm, chunk=L)
+    expect = torch.einsum("bts,bts,bth,bthd->bthd", Cm, Bm, dt, x)
+    ok, d_forget = close(forget, expect, 1e-4)
+    check(ok, f"ssd_scan A -> -inf: y == dt C.B x within 1e-4 (max {d_forget!r})")
+    print(f"ssd_scan ragged T=2000: max |kernel - plain| {d!r}; dt -> 0: max |y| "
+          f"{tiny!r}; A -> -inf: max |y - dt C.B x| {d_forget!r}")
+    print(f"time ssd_scan f32: {times['f32'][0]!r} ms; plain {times['f32'][1]!r} ms; "
+          f"bound {times['f32'][2][0]!r} ms ({times['f32'][2][1]})")
+    ms, plain_ms, b = times["bf16"]  # the model's type: the row
+    return kernel_row("ssd_scan", SSD_SOURCE, "src/repro/kernels/ssd_scan/kernel.py:36",
+                      launches, err["bf16"], ms, plain_ms, b, None)
+
+
+def ssm_model_path(dev):
+    """Phase 8: mamba2-370m at full width through the port's entry points --
+    the forward in both backends, prefill/decode against the forward, and
+    the serving engine behind the continuous batcher -- then the SSD
+    kernel alone.  Returns the kernel's row."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import api
+    from repro_torch.models.params import cast
+    from repro_torch.serve import ContinuousBatcher, Engine, Request
+
+    cfg = get_config(SSM_MODEL)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab, (SSM_B, SSM_T)).astype(np.int32)
+    batch = {"tokens": tokens}
+    torch.cuda.synchronize()
+
+    # -- the forward in both backends (f32) --------------------------------
+    _build.reset_launches()
+    t_path = time.perf_counter()
+    params = api.init_params(torch.Generator(device=dev).manual_seed(0), cfg32, device=dev)
+    pallas = api.forward(params, cfg32, batch, backend="pallas")
+    xla = api.forward(params, cfg32, batch, backend="xla")
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"ssm model path: {SSM_MODEL} f32, {cfg.n_layers} layers, B={SSM_B} x "
+          f"T={SSM_T}: {time.perf_counter() - t_path:.2f} s wall (init + two forwards), "
+          f"launches {launches}")
+    check(launches["ssd_scan"] == cfg.n_layers,
+          f"one ssd_scan launch per layer ({launches['ssd_scan']})")
+    check(sum(launches.values()) == launches["ssd_scan"], "no other kernel on the ssm path")
+    shape = (SSM_B, SSM_T, cfg.vocab)
+    for name, out in (("pallas", pallas), ("xla", xla)):
+        check(tuple(out.shape) == shape and bool(out.isfinite().all()),
+              f"ssm {name} logits: shape {shape}, finite")
+    top = float(xla.abs().max())
+    d = float((pallas - xla).abs().max())
+    agree = float((pallas.argmax(-1) == xla.argmax(-1)).double().mean())
+    print(f"ssm model f32: max |pallas - xla| {d!r} = {d / top!r} of max |logit| {top!r}; "
+          f"greedy argmax agrees on {agree!r} of positions")
+    check(d <= 1e-3 * top, "ssm model f32: backends agree within 1e-3 of max |logit|")
+    check(agree >= 0.999, "ssm model f32: argmax agrees on >= 99.9 % of positions")
+    del xla
+
+    # -- prefill / decode against the forward (f32) ------------------------
+    _build.reset_launches()
+    cache = api.init_cache(cfg32, SSM_B, SSM_T, device=dev)
+    lg, cache = api.prefill(params, cfg32, {"tokens": tokens[:, :SSM_PREFIX]}, cache,
+                            backend="pallas")
+    check(_build.LAUNCHES["ssd_scan"] == cfg.n_layers,
+          f"prefill: one ssd_scan launch per layer ({_build.LAUNCHES['ssd_scan']})")
+    token = tokens[:, SSM_PREFIX]
+    lg2, after = api.decode_step(params, cfg32, token, cache, backend="pallas")
+    check(_build.LAUNCHES["ssd_scan"] == cfg.n_layers, "decode launches no scan kernel")
+    check(int(after["pos"]) == SSM_PREFIX + 1, "cache position after prefill + decode")
+    for what, pos, got in (("prefill", SSM_PREFIX - 1, lg), ("decode", SSM_PREFIX, lg2)):
+        top = float(pallas[:, pos].abs().max())
+        dd = float((got - pallas[:, pos]).abs().max())
+        check(dd <= PREFILL_DECODE_BARS[what] * top,
+              f"{what} == forward within {PREFILL_DECODE_BARS[what]} of max |logit| "
+              f"(max {dd!r} of {top!r})")
+        print(f"{what} at position {pos}: max |{what} - forward| {dd!r} = {dd / top!r} "
+              f"of max |logit| {top!r}")
+    # planted decode faults, each a cache handed over wrong: the decode bar
+    # must tell them from a sound step
+    _, stale = api.prefill(params, cfg32, {"tokens": tokens[:, :SSM_PREFIX - 1]},
+                           api.init_cache(cfg32, SSM_B, SSM_T, device=dev),
+                           backend="pallas")
+    faults = {"conv tail dropped": {**cache, "ssm": {
+                  **cache["ssm"], "conv": torch.zeros_like(cache["ssm"]["conv"])}},
+              "state one token stale": {**cache, "ssm": {
+                  **cache["ssm"], "state": stale["ssm"]["state"]}}}
+    want = pallas[:, SSM_PREFIX]
+    top = float(want.abs().max())
+    for what, bad in faults.items():
+        dd = float((api.decode_step(params, cfg32, token, bad, backend="pallas")[0]
+                    - want).abs().max())
+        print(f"planted decode fault, {what}: max |decode - forward| {dd!r} = "
+              f"{dd / top!r} of max |logit|")
+        check(dd > PREFILL_DECODE_BARS["decode"] * top,
+              f"planted fault ({what}) reads above the decode bar")
+    del stale, faults, after
+    del pallas, cache
+
+    # -- bf16 forward times ------------------------------------------------
+    params = cast(params, torch.bfloat16)  # the config's dtype; A_log, D, dt_bias stay f32
+    torch.cuda.synchronize()
+    outs = {b: forward_times(params, cfg, batch, b, "ssm bf16") for b in ("pallas", "xla")}
+    print(f"ssm bf16: max |pallas - xla| "
+          f"{float((outs['pallas'] - outs['xla']).abs().max())!r} of max |logit| "
+          f"{float(outs['xla'].abs().max())!r}")
+    del outs
+    # where the forward's time goes: its matrix products alone, same shapes
+    h = torch.randn((SSM_B * SSM_T, cfg.d_model), device=dev, dtype=torch.bfloat16)
+    lp = params["layers"][0]["ssm"]
+    hi = torch.randn((SSM_B * SSM_T, cfg.d_inner), device=dev, dtype=torch.bfloat16)
+    proj_ms = cuda_ms(lambda: (h @ lp["in_proj"], hi @ lp["out_proj"]))
+    head_ms = cuda_ms(lambda: h @ params["embed"].T)
+    print(f"time ssm bf16 products: in_proj + out_proj {proj_ms!r} ms a layer "
+          f"({cfg.n_layers * proj_ms!r} ms for {cfg.n_layers}); LM head {head_ms!r} ms")
+    del h, hi
+
+    # -- serving: the engine behind the continuous batcher (bf16) ----------
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab, (SERVE_N, SERVE_PROMPT)).astype(np.int32)
+    max_new = rng.integers(SERVE_MAX_NEW[0], SERVE_MAX_NEW[1] + 1, SERVE_N)
+    engine = Engine(cfg, params, backend="pallas")
+    step = engine.generate(prompts[:2], max_new=4)
+    cache = api.init_cache(cfg, 2, SERVE_PROMPT + 4, device=dev)
+    lg, cache = api.prefill(params, cfg, {"tokens": prompts[:2]}, cache, backend="pallas")
+    loop = []
+    tok = lg.argmax(-1).int()
+    for _ in range(4):
+        loop.append(tok.cpu().numpy())
+        lg, cache = api.decode_step(params, cfg, tok, cache, backend="pallas")
+        tok = lg.argmax(-1).int()
+    check(np.array_equal(step, np.stack(loop, 1)), "generate == stepwise prefill + greedy")
+    for static in (False, True):
+        reqs = [Request(rid=i, prompt=prompts[i], max_new=int(m))
+                for i, m in enumerate(max_new)]
+        seen = []
+
+        def process(chunk, worker):
+            t0 = time.perf_counter()
+            out = engine.generate(np.stack([r.prompt for r in chunk]),
+                                  max_new=max(r.max_new for r in chunk))
+            torch.cuda.synchronize()
+            for i, r in enumerate(chunk):
+                r.output = out[i, :r.max_new].tolist()
+            seen.extend(r.rid for r in chunk)
+            return time.perf_counter() - t0
+
+        _build.reset_launches()
+        batcher = ContinuousBatcher(n_workers=SERVE_WORKERS, technique="gss")
+        done = batcher.schedule(reqs, process, static=static)
+        rep = batcher.last_report
+        sizes = [c.size for c in sorted((c for per in rep.per_pe_claims for c in per),
+                                        key=lambda c: c.step)]
+        name = "static" if static else "gss"
+        check(sorted(seen) == list(range(SERVE_N)), f"serve {name}: every request once")
+        check(all(len(r.output) == r.max_new for r in reqs), f"serve {name}: all tokens")
+        check(_build.LAUNCHES["ssd_scan"] == cfg.n_layers * rep.steps,
+              f"serve {name}: one prefill (48 scan launches) per claimed chunk")
+        print(f"serve {name}: {SERVE_N} requests x {SERVE_PROMPT}-token prompts, "
+              f"max_new {SERVE_MAX_NEW[0]}..{SERVE_MAX_NEW[1]}, {SERVE_WORKERS} workers: "
+              f"{rep.steps} chunks of {sizes}, "
+              f"makespan {float(done.max())!r} s, mean latency {float(done.mean())!r} s, "
+              f"ssd_scan launches {_build.LAUNCHES['ssd_scan']}")
+    del params, engine
+    torch.cuda.empty_cache()
+    return ssd_kernel_path(dev, cfg, launches["ssd_scan"])
 
 
 def main() -> int:
@@ -615,6 +870,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rows += attention_path(dev, P, static_launches=model_path(dev))
+    t_ssm = time.perf_counter()
+    rows.append(ssm_model_path(dev))
+    print(f"ssm phase: {time.perf_counter() - t_ssm:.1f} s wall")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

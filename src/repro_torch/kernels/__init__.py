@@ -1,12 +1,14 @@
 """The repo's TPU kernels as hand-written CUDA kernels for Hopper.
 
-Port of ``repro.kernels`` (the SSD scan is still queued in ROADMAP.md):
+Port of ``repro.kernels``, all four of its kernel packages:
 
   mandelbrot      -- paper app 2: escape-time z<-z^4+c (variable-cost loop),
                      static grid and persistent self-scheduled grid
   spin_image      -- paper app 1: PSIA spin images, shared-memory histogram
   flash_attention -- fused attention (causal/SWA/GQA), static grid and
                      persistent self-scheduled grid over varlen batches
+  ssd_scan        -- the Mamba2 SSD chunked scan (state carried across
+                     chunks), the SSM model's forward and prefill
 
 Each entry point runs on the card unless given CPU tensors or
 ``device="cpu"``, where the kernel's plain PyTorch version runs.  The CUDA
@@ -18,3 +20,4 @@ from .flash_attention.persistent import flash_attention_persistent  # noqa: F401
 from .mandelbrot.ops import mandelbrot, mandelbrot_ref  # noqa: F401
 from .mandelbrot.persistent import mandelbrot_persistent  # noqa: F401
 from .spin_image.ops import spin_images, spin_images_oracle  # noqa: F401
+from .ssd_scan.ops import ssd_scan, ssd_scan_oracle  # noqa: F401

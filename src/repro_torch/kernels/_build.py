@@ -38,6 +38,7 @@ SOURCES = {
     "mandelbrot": "mandelbrot.cu",
     "spin_image": "spin_image.cu",
     "flash_attention": "flash_attention.cu",
+    "ssd_scan": "ssd_scan.cu",
 }
 
 NVCC_FLAGS = (
@@ -54,6 +55,7 @@ LAUNCHES: Dict[str, int] = {
     "spin_image": 0,
     "flash_attention": 0,
     "flash_attention_persistent": 0,
+    "ssd_scan": 0,
 }
 
 #: library name -> nvcc's output (``-Xptxas -v``: registers, shared memory)

@@ -14,8 +14,9 @@ from .kernel import _flash_plain, flash_attention_cuda
 from .ref import attention_ref
 
 
-def placed(tensors, device, what):
-    """``tensors`` as contiguous tensors on one device.
+def placed(tensors, device, what, contiguous=True):
+    """``tensors`` as tensors on one device, contiguous unless
+    ``contiguous`` is false (a kernel that takes strides keeps views).
 
     That device is ``device`` if given, else the first input's own when it
     is a tensor, else ``"cuda"``: numpy input has no device, and the entry
@@ -25,7 +26,8 @@ def placed(tensors, device, what):
     if device is None and isinstance(tensors[0], torch.Tensor):
         device = tensors[0].device
     device = _build.target_device(device, what)
-    return tuple(torch.as_tensor(t, device=device).contiguous() for t in tensors)
+    out = tuple(torch.as_tensor(t, device=device) for t in tensors)
+    return tuple(t.contiguous() for t in out) if contiguous else out
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, scale=None,

@@ -1,0 +1,1 @@
+from . import kernel, ops, ref  # noqa: F401

@@ -9,7 +9,10 @@ port's parameters, so the two packages compute the same function:
   * every weight keeps its ``x @ W`` orientation -- no transpose anywhere,
     since the port multiplies ``x @ W`` as the reference does;
   * bf16 arrays (numpy's ``bfloat16`` extension type) are reinterpreted
-    bit for bit.
+    bit for bit;
+  * ``dtype=`` casts every floating leaf except those the reference keeps
+    in f32 in any model (the SSM's ``A_log``, ``D`` and ``dt_bias``);
+    ``cast`` does the same to the port's own params.
 
 This is not ``core/weights.py``: that module holds the DLS workers'
 weights.
@@ -21,40 +24,55 @@ import torch
 
 from repro_torch.kernels import _build
 
-from .lm import require_dense
+from .lm import require_ported
+from .ssm import F32_LEAVES
 
 
-def _tensor(a, device, dtype):
+def _tensor(a, device):
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(a))  # a writable copy
-    if dtype is not None and t.is_floating_point():
-        t = t.to(dtype)
     return t.to(device)
 
 
-def _map(tree, fn):
-    return {k: _map(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+def _map(tree, fn, key=None):
+    """``fn(leaf, name)`` over a tree of dicts and lists; ``name`` is the
+    leaf's own key."""
+    if isinstance(tree, dict):
+        return {k: _map(v, fn, k) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(v, fn, key) for v in tree]
+    return fn(tree, key)
+
+
+def cast(params, dtype):
+    """``params`` with every floating leaf in ``dtype``, except the leaves
+    the reference keeps in f32 (``F32_LEAVES``)."""
+    def leaf(t, name):
+        if name in F32_LEAVES or not t.is_floating_point():
+            return t
+        return t.to(dtype)
+
+    return _map(params, leaf)
 
 
 def params_from_numpy(tree, cfg, device=None, dtype=None):
     """The port's params for ``cfg`` from the JAX package's tree of numpy
     arrays, on ``device`` (default ``"cuda"``), cast to ``dtype`` if given.
     """
-    require_dense(cfg)
+    require_ported(cfg)
     device = _build.target_device(device, "params_from_numpy")
-    conv = lambda a: _tensor(a, device, dtype)  # noqa: E731
-    stacked = _map(tree["layers"], conv)
+    stacked = _map(tree["layers"], lambda a, _: _tensor(a, device))
     for leaf in _leaves(stacked):
         if leaf.shape[0] != cfg.n_layers:
             raise ValueError(f"layer leaves must lead with n_layers={cfg.n_layers}, "
                              f"got shape {tuple(leaf.shape)}")
-    params = {k: conv(v) for k, v in tree.items() if k != "layers"}
-    params["layers"] = [_map(stacked, lambda t, i=i: t[i])
+    params = {k: _tensor(v, device) for k, v in tree.items() if k != "layers"}
+    params["layers"] = [_map(stacked, lambda t, _, i=i: t[i])
                         for i in range(cfg.n_layers)]
-    return params
+    return params if dtype is None else cast(params, dtype)
 
 
 def _leaves(tree):

@@ -117,7 +117,9 @@ def test_spin_images_host_input_on_cpu_when_asked(kind):
                                    "mandelbrot", "mandelbrot_persistent",
                                    "flash_attention", "attention_oracle",
                                    "flash_attention_persistent",
+                                   "ssd_scan", "ssd_scan_oracle",
                                    "models.api.forward",
+                                   "models.api.init_cache",
                                    "models.params.params_from_numpy"])
 def test_kernel_entry_points_default_to_the_card(monkeypatch, entry):
     """Without a card the default raises instead of running the plain
@@ -131,13 +133,20 @@ def test_kernel_entry_points_default_to_the_card(monkeypatch, entry):
     pts, nrm = cloud(32)
     q = np.zeros((1, 2, 16, 8), np.float32)
     kv = np.zeros((1, 1, 16, 8), np.float32)
+    ssd = (np.zeros((1, 8, 2, 4), np.float32), np.zeros((1, 8, 2), np.float32),
+           np.zeros(2, np.float32), np.zeros((1, 8, 4), np.float32),
+           np.zeros((1, 8, 4), np.float32))
     cfg = get_config("tinyllama-1.1b").reduced(n_layers=1)
     tokens = {"tokens": np.zeros((1, 4), np.int32)}
     call = {
         "flash_attention": lambda: tk.flash_attention(q, kv, kv),
         "attention_oracle": lambda: tk.attention_oracle(q, kv, kv),
         "flash_attention_persistent": lambda: tk.flash_attention_persistent(q, kv, kv),
+        "ssd_scan": lambda: tk.ssd_scan(*ssd),
+        "ssd_scan_oracle": lambda: tk.ssd_scan_oracle(*ssd),
         "models.api.forward": lambda: api.forward(api.init_params(0, cfg), cfg, tokens),
+        "models.api.init_cache": lambda: api.init_cache(
+            get_config("mamba2-370m").reduced(n_layers=1), 1, 8),
         "models.params.params_from_numpy": lambda: params_from_numpy(
             {"layers": {}}, cfg),
         "spin_images": lambda: tk.spin_images(pts, nrm, 4),

@@ -153,7 +153,8 @@ def test_attention_block_backends_agree(window):
     torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("name", sorted(n for n, c in ARCHS.items() if c.family != "dense"))
+@pytest.mark.parametrize("name", sorted(n for n, c in ARCHS.items()
+                                       if c.family not in lm.FORWARD_FAMILIES))
 def test_other_families_name_their_roadmap_item(name):
     cfg = ARCHS[name].reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -1,0 +1,362 @@
+"""Port parity, SSM family: repro_torch.models (ssm, lm, api) vs
+repro.models on the reduced mamba2-370m (4 layers, d 256, 16 heads of
+dim 32, state 32).
+
+The JAX package initializes the params from ``PRNGKey(0)``;
+``params_from_numpy`` carries them across, and both packages run on the
+same numpy tokens and activations: the "xla" backend (the chunked SSD in
+plain code on both sides) and "pallas" (the Pallas kernel in interpret
+mode against the port's plain SSD scan).  Bars are relative to the
+largest |value| of the reference: 1e-4 in f32 (the two stacks round
+differently: XLA's CPU dots against PyTorch's; about 1e-5 of it
+measured), 3e-2 in bf16 (bf16 keeps 8 bits, and each rounding of the two
+stacks may differ by 2^-8 relative).  The forward runs at T = 200 (a full
+chunk and a ragged one) in both types.  There the bf16 port reads 1.1e-2
+(xla) and 1.8e-2 (pallas) of max |logit| from JAX, about JAX's own
+pallas-against-xla spread, 1.7e-2 (measured with this file's inputs); f32
+agrees within 1e-5.  Decode against the teacher-forced forward keeps the
+reference's own bar, 2e-3 absolute and relative
+(``tests/test_archs.py::test_decode_consistent_with_forward``), and two
+planted cache faults must read above it.  The ``cuda`` test holds the
+"pallas" backend -- the CUDA kernel -- against "xla" on the card.
+"""
+import dataclasses
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels import _build
+from repro_torch.models import api, lm, ssm
+from repro_torch.models.params import cast, params_from_numpy
+
+from _torch_support import require_card
+
+BARS = {"float32": 1e-4, "bfloat16": 3e-2}
+DTYPES = list(BARS)
+BACKENDS = ["xla", "pallas"]
+B = 2
+
+
+def _cfg(dtype="float32"):
+    return get_config("mamba2-370m").reduced(dtype=dtype)
+
+
+@pytest.fixture(scope="module")
+def jax_params():
+    """dtype -> (JAX params, the same tree as numpy), made once: the f32
+    init, and its bf16 cast with the reference's f32 leaves kept f32."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import api as japi
+
+    p = japi.init_params(jax.random.PRNGKey(0), _cfg())
+    bf = jax.tree.map(lambda a: a.astype(jnp.bfloat16), p)
+    bf["layers"]["ssm"].update({k: p["layers"]["ssm"][k] for k in ssm.F32_LEAVES})
+    return {dtype: (t, jax.tree.map(np.asarray, t))
+            for dtype, t in (("float32", p), ("bfloat16", bf))}
+
+
+@functools.lru_cache(maxsize=None)
+def _jitted(name):
+    """The JAX function ``repro.models.<name>``, jitted with the config
+    static (one compile per shape instead of one per eager op)."""
+    import jax
+    from repro.models import api as japi, ssm as jssm
+
+    fn = {"ssm_block": jssm.ssm_block, "forward": japi.forward,
+          "prefill": japi.prefill, "decode_step": japi.decode_step}[name]
+    return jax.jit(fn, static_argnums=2 if name == "ssm_block" else 1,
+                   static_argnames=("backend",))
+
+
+def _tokens(cfg, T, seed=0):
+    return np.random.default_rng(seed).integers(0, cfg.vocab, (B, T)).astype(np.int32)
+
+
+def _close(got, ref, rel):
+    """|got - ref| within ``rel`` of the reference's largest |value|."""
+    ref = np.asarray(ref, np.float32)
+    got = got.float().cpu().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, atol=rel * float(np.abs(ref).max()), rtol=0)
+
+
+def _jnp(a, dtype):
+    import jax.numpy as jnp
+
+    return jnp.asarray(a, {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype])
+
+
+def _block_inputs(cfg, T, with_cache, seed=1):
+    """numpy activations (B, T, d) and, if asked, a cache of the block."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(B, T, cfg.d_model)).astype(np.float32)
+    if not with_cache:
+        return x, None
+    state = rng.normal(size=(B, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim))
+    conv = rng.normal(size=(B, cfg.ssm_conv - 1, cfg.d_inner + 2 * cfg.ssm_state))
+    return x, {"state": state.astype(np.float32), "conv": conv.astype(np.float32)}
+
+
+# ---------------------------------------------------------------------------
+# the block
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("backend,T,with_cache", [
+    ("xla", 70, False), ("xla", 70, True), ("pallas", 70, False), ("pallas", 70, True),
+    ("xla", 1, True),  # the decode step takes no backend
+], ids=["xla", "xla+cache", "pallas", "pallas+cache", "decode-step"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssm_block_matches_reference(jax_params, dtype, backend, T, with_cache):
+    """The chunked scan with and without a carried cache, and the O(1)
+    step (T == 1 with a cache), against ``repro.models.ssm.ssm_block``."""
+    import jax
+
+    cfg = _cfg(dtype)
+    jp, tree = jax_params[dtype]
+    jlayer = jax.tree.map(lambda a: a[0], jp["layers"]["ssm"])
+    layer = params_from_numpy(tree, cfg, device="cpu")["layers"][0]["ssm"]
+    x, cache = _block_inputs(cfg, T, with_cache)
+    jcache = None if cache is None else {
+        "state": _jnp(cache["state"], "float32"), "conv": _jnp(cache["conv"], dtype)}
+    tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    tcache = None if cache is None else {
+        "state": torch.from_numpy(cache["state"]),
+        "conv": torch.from_numpy(cache["conv"]).to(tdt)}
+    ref, rcache = _jitted("ssm_block")(jlayer, _jnp(x, dtype), cfg, cache=jcache,
+                                       backend=backend)
+    got, gcache = ssm.ssm_block(layer, torch.from_numpy(x).to(tdt), cfg, cache=tcache,
+                                backend=backend)
+    assert got.dtype == tdt
+    _close(got, ref, BARS[dtype])
+    if cache is None:
+        assert gcache is None
+    else:
+        assert gcache["state"].dtype == torch.float32 and gcache["conv"].dtype == tdt
+        _close(gcache["state"], rcache["state"], BARS[dtype])
+        _close(gcache["conv"], rcache["conv"], BARS[dtype])
+
+
+def test_sequential_mode_matches_chunked(monkeypatch):
+    cfg = _cfg()
+    layer = lm.init_params(3, cfg, device="cpu")["layers"][1]["ssm"]
+    x, cache = _block_inputs(cfg, 50, True, seed=2)
+    x = torch.from_numpy(x)
+    cache = {k: torch.from_numpy(v) for k, v in cache.items()}
+    chunked, c1 = ssm.ssm_block(layer, x, cfg, cache=cache)
+    monkeypatch.setattr(ssm, "SSD_MODE", "sequential")
+    seq, c2 = ssm.ssm_block(layer, x, cfg, cache=cache)
+    torch.testing.assert_close(seq, chunked, atol=1e-4 * float(chunked.abs().max()), rtol=0)
+    torch.testing.assert_close(c2["state"], c1["state"], atol=1e-4, rtol=1e-4)
+    with pytest.raises(ValueError, match="backend"):
+        ssm.ssm_block(layer, x, cfg, backend="mosaic")
+
+
+# ---------------------------------------------------------------------------
+# the model: forward, cache, prefill, decode
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_forward_matches_reference(jax_params, dtype, backend):
+    """T = 200: a full chunk of 128 and a ragged one."""
+    import jax.numpy as jnp
+
+    cfg = _cfg(dtype)
+    jp, tree = jax_params[dtype]
+    T = 200
+    tokens = _tokens(cfg, T)
+    ref = np.asarray(_jitted("forward")(jp, cfg, {"tokens": jnp.asarray(tokens)},
+                                        backend=backend))
+    got = api.forward(params_from_numpy(tree, cfg, device="cpu"), cfg,
+                      {"tokens": tokens}, backend=backend)
+    assert got.dtype == torch.float32 and got.shape == (B, T, cfg.vocab)
+    _close(got, ref, BARS[dtype])
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_bf16_forward_within_the_reference_spread(jax_params, backend):
+    """In bf16 the port is no further from JAX than 1.5x JAX's own two
+    backends are from each other, on the inputs above.  A rounding that
+    differs from the reference's in every layer (``F.silu`` for
+    ``jax.nn.silu`` read 2.0x) fails; the readings are 0.7x (xla) and 1.1x
+    (pallas) of a 1.7e-2 spread."""
+    import jax.numpy as jnp
+
+    cfg = _cfg("bfloat16")
+    jp, tree = jax_params["bfloat16"]
+    tokens = _tokens(cfg, 200)
+    ref = {b: np.asarray(_jitted("forward")(jp, cfg, {"tokens": jnp.asarray(tokens)},
+                                            backend=b)) for b in BACKENDS}
+    top = float(np.abs(ref[backend]).max())
+    spread = float(np.abs(ref["pallas"] - ref["xla"]).max()) / top
+    got = api.forward(params_from_numpy(tree, cfg, device="cpu"), cfg,
+                      {"tokens": tokens}, backend=backend).numpy()
+    gap = float(np.abs(got - ref[backend]).max()) / top
+    assert gap <= 1.5 * spread, (gap, spread)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_init_cache_matches_reference_layout(dtype):
+    from repro.models import api as japi
+
+    cfg = _cfg(dtype)
+    ref = japi.init_cache(cfg, 3, 100)
+    got = api.init_cache(cfg, 3, 100, device="cpu")
+    assert got.keys() == ref.keys() and got["ssm"].keys() == ref["ssm"].keys()
+    for k in ("state", "conv"):
+        r, g = ref["ssm"][k], got["ssm"][k]
+        assert tuple(g.shape) == r.shape and str(g.dtype).split(".")[1] == str(r.dtype)
+        assert not bool(g.any())
+    assert got["pos"].dtype == torch.int32 and int(got["pos"]) == 0
+    assert api.init_cache(cfg, 3, 100, dtype=torch.float32,
+                          device="cpu")["ssm"]["conv"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_prefill_and_decode_match_reference(jax_params, dtype, backend):
+    """Logits and the cache after a 40-token prefill and three decode steps."""
+    import jax.numpy as jnp
+    from repro.models import api as japi
+
+    cfg = _cfg(dtype)
+    jp, tree = jax_params[dtype]
+    p = params_from_numpy(tree, cfg, device="cpu")
+    tokens = _tokens(cfg, 43, seed=3)
+    jc = japi.init_cache(cfg, B, 64)
+    c = api.init_cache(cfg, B, 64, device="cpu")
+    jl, jc = _jitted("prefill")(jp, cfg, {"tokens": jnp.asarray(tokens[:, :40])}, jc,
+                                backend=backend)
+    lg, c = api.prefill(p, cfg, {"tokens": tokens[:, :40]}, c, backend=backend)
+    assert lg.dtype == torch.float32 and lg.shape == (B, cfg.vocab)
+    _close(lg, jl, BARS[dtype])
+    for t in range(40, 43):
+        jl, jc = _jitted("decode_step")(jp, cfg, jnp.asarray(tokens[:, t]), jc,
+                                        backend=backend)
+        lg, c = api.decode_step(p, cfg, tokens[:, t], c, backend=backend)
+        _close(lg, jl, BARS[dtype])
+    assert int(c["pos"]) == int(jc["pos"]) == 43
+    _close(c["ssm"]["state"], jc["ssm"]["state"], BARS[dtype])
+    _close(c["ssm"]["conv"], jc["ssm"]["conv"], BARS[dtype])
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_decode_consistent_with_forward(backend):
+    """Prefill + one decode step == the teacher-forced forward at the same
+    positions (tests/test_archs.py's bar), and the cache passed in is not
+    modified."""
+    cfg = _cfg()
+    p = api.init_params(0, cfg, device="cpu")
+    tokens = _tokens(cfg, 33, seed=4)
+    cache = api.init_cache(cfg, B, 64, device="cpu")
+    lg, c1 = api.prefill(p, cfg, {"tokens": tokens[:, :32]}, cache, backend=backend)
+    assert not bool(cache["ssm"]["state"].any()) and int(cache["pos"]) == 0
+    full = api.forward(p, cfg, {"tokens": tokens}, backend=backend)
+    torch.testing.assert_close(lg, full[:, 31], atol=2e-3, rtol=2e-3)
+    lg2, c2 = api.decode_step(p, cfg, torch.from_numpy(tokens[:, 32:33]), c1, backend=backend)
+    torch.testing.assert_close(lg2, full[:, 32], atol=2e-3, rtol=2e-3)
+    assert int(c2["pos"]) == 33 and int(c1["pos"]) == 32
+
+
+def _stale_state(p, cfg, tokens, cache):
+    """The cache with its state from one prompt token fewer."""
+    _, short = api.prefill(p, cfg, {"tokens": tokens[:, :-1]},
+                           api.init_cache(cfg, B, 64, device="cpu"))
+    return {**cache, "ssm": {**cache["ssm"], "state": short["ssm"]["state"]}}
+
+
+def _dropped_conv(p, cfg, tokens, cache):
+    """The cache with its conv tail zeroed."""
+    return {**cache, "ssm": {**cache["ssm"],
+                             "conv": torch.zeros_like(cache["ssm"]["conv"])}}
+
+
+@pytest.mark.parametrize("plant", [_stale_state, _dropped_conv],
+                         ids=["state-one-token-stale", "conv-tail-dropped"])
+def test_decode_bar_catches_a_planted_fault(plant):
+    """A cache handed over wrong reads above the decode bar of
+    ``test_decode_consistent_with_forward``."""
+    cfg = _cfg()
+    p = api.init_params(0, cfg, device="cpu")
+    tokens = _tokens(cfg, 33, seed=4)
+    _, cache = api.prefill(p, cfg, {"tokens": tokens[:, :32]},
+                           api.init_cache(cfg, B, 64, device="cpu"))
+    want = api.forward(p, cfg, {"tokens": tokens})[:, 32]
+    bad, _ = api.decode_step(p, cfg, tokens[:, 32], plant(p, cfg, tokens[:, :32], cache))
+    assert not bool(((bad - want).abs() <= 2e-3 + 2e-3 * want.abs()).all())
+
+
+def test_f32_leaves_survive_a_bf16_dtype(jax_params):
+    """A_log, D and dt_bias stay f32 in a bf16 model, as in the reference."""
+    cfg = _cfg("bfloat16")
+    tree = jax_params["float32"][1]
+    for p in (params_from_numpy(tree, cfg, device="cpu", dtype=torch.bfloat16),
+              cast(params_from_numpy(tree, cfg, device="cpu"), torch.bfloat16),
+              api.init_params(0, cfg, device="cpu")):
+        for lp in p["layers"]:
+            for k, v in lp["ssm"].items():
+                assert v.dtype == (torch.float32 if k in ssm.F32_LEAVES else torch.bfloat16), k
+            assert lp["ln"].dtype == torch.bfloat16
+        assert p["embed"].dtype == torch.bfloat16
+    bf = params_from_numpy(tree, cfg, device="cpu", dtype=torch.bfloat16)
+    assert np.array_equal(bf["layers"][2]["ssm"]["A_log"].numpy(),
+                          tree["layers"]["ssm"]["A_log"][2])
+
+
+def test_init_params_matches_reference_layout(jax_params):
+    cfg = _cfg("bfloat16")
+    p = api.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    ported = params_from_numpy(jax_params["bfloat16"][1], cfg, device="cpu")
+
+    def spec(t):
+        return {k: spec(v) if isinstance(v, dict) else (tuple(v.shape), v.dtype)
+                for k, v in t.items()}
+
+    assert "lm_head" not in p  # tied embeddings
+    assert spec({k: v for k, v in p.items() if k != "layers"}) == \
+        spec({k: v for k, v in ported.items() if k != "layers"})
+    assert [spec(lp) for lp in p["layers"]] == [spec(lp) for lp in ported["layers"]]
+
+
+def test_dense_cache_names_its_roadmap_item():
+    """The dense family's KV caches are not ported: init_cache, prefill and
+    decode_step raise naming ROADMAP.md item 11; its forward still runs."""
+    cfg = get_config("tinyllama-1.1b").reduced(n_layers=1)
+    p = api.init_params(0, cfg, device="cpu")
+    for call in (lambda: api.init_cache(cfg, 1, 8, device="cpu"),
+                 lambda: api.prefill(p, cfg, {"tokens": np.zeros((1, 4), np.int32)}, {}),
+                 lambda: api.decode_step(p, cfg, np.zeros((1,), np.int32), {})):
+        with pytest.raises(NotImplementedError, match=r"KV caches.*item 11"):
+            call()
+    assert api.forward(p, cfg, {"tokens": np.zeros((1, 4), np.int32)}).shape == (1, 4, cfg.vocab)
+    hybrid = get_config("zamba2-2.7b").reduced()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        api.init_cache(hybrid, 1, 8, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# on the card: the "pallas" backend (CUDA kernel) against "xla"
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_pallas_matches_xla_on_the_card(dtype):
+    require_card()
+    cfg = dataclasses.replace(_cfg(dtype), n_layers=3)
+    params = api.init_params(0, cfg)
+    tokens = _tokens(cfg, 300, seed=1)
+    xla = api.forward(params, cfg, {"tokens": tokens}, backend="xla")
+    _build.reset_launches()
+    pallas = api.forward(params, cfg, {"tokens": tokens}, backend="pallas")
+    assert _build.LAUNCHES["ssd_scan"] == cfg.n_layers
+    assert pallas.device.type == "cuda"
+    torch.testing.assert_close(pallas, xla, atol=BARS[dtype] * float(xla.abs().max()), rtol=0)
+    cache = api.init_cache(cfg, B, 400)
+    lg, cache = api.prefill(params, cfg, {"tokens": tokens}, cache, backend="pallas")
+    assert _build.LAUNCHES["ssd_scan"] == 2 * cfg.n_layers
+    torch.testing.assert_close(lg, xla[:, -1], atol=BARS[dtype] * float(xla.abs().max()),
+                               rtol=0)
