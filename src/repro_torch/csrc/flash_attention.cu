@@ -1,5 +1,7 @@
 // Fused attention forward (online softmax): the static grid and the
-// persistent self-scheduled grid over a varlen batch, sharing one tile body.
+// persistent self-scheduled grid over a varlen batch.  Both kernels share
+// one tile body per input type: f32 on the f32 units (`attend_tile`), bf16
+// on Hopper's tensor cores (`tc::attend`).
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py, `_fa_kernel`, and
 // src/repro/kernels/flash_attention/persistent.py, `_persistent_kernel`.
@@ -8,72 +10,80 @@
 // masked scores, and the mask multiplies p, so a row with no valid key ends
 // with l = 0 and writes zeros; scores, running max, denominator and
 // accumulator are f32 whatever the input type; the output is written in
-// the input's type (bf16 by __float2bfloat16_rn).  The static kernel
-// scales s after the dot (kernel.py:70-72), the persistent kernel scales q
-// before it (persistent.py:64); each keeps its reference's order.  GQA:
-// query head bh of the flattened (B*H) axis reads kv head bh / (H/Hkv).
+// the input's type (bf16 by round-to-nearest).  GQA: query head bh of the
+// flattened (B*H) axis reads kv head bh / (H/Hkv).  The f32 body keeps each
+// reference's scaling order: the static kernel scales s after the dot
+// (kernel.py:70-72), the persistent kernel scales q before it
+// (persistent.py:64).  The bf16 body differs from the reference in two
+// deliberate ways, both inside the bf16 bar: it scales s after the product
+// in both kernels (q * scale in bf16 would add a rounding), and it rounds p
+// to bf16 before p.v (2^-9 relative per term; the reference keeps p f32).
 //
 // Bound: a head does 4*D operations per (row, key) pair it attends, about
 // 2*T*T*D when causal, and moves 4*T*D elements (q, k, v read, o written).
 // At the main path's T = 2048 that is T/8 = 256 operations per f32 byte and
 // T/4 = 512 per bf16 byte, above the card's ~20 (f32 units) and ~295 (bf16
-// tensor cores) lines: operations bound it.  This first version computes
-// on the f32 units, without tensor cores and (built with -fmad=false)
-// without FMA: it is right and simple, and far from the bf16 bound.
+// tensor cores) lines: operations bound it.
 //
-// Design: a CTA runs one (head, q block) tile with four threads per query
-// row.  Each thread keeps a quarter of the row's q and accumulator in
-// registers, as float4 chunks interleaved across the four threads (chunk c
-// of thread r covers dims 4*(r + 4c) .. +3), so a warp's shared-memory reads
-// of a key touch four consecutive 16-byte words and never conflict.  Keys
-// and values go through shared memory as f32 in sub-tiles of kKeys rows
-// (2 * 32 * 128 * 4 bytes = 32 KB at D = 128, inside the 48 KB of static
-// shared memory); the online update runs per sub-tile.  The dot product's
-// four partial sums meet by two xor shuffles, and IEEE addition commutes,
-// so all four threads of a row hold the same score bit for bit.
+// f32 body: a CTA runs one (head, q block) tile with four threads per query
+// row, built with -fmad=false and without tensor cores (whose TF32 products
+// would miss the f32 bar of 2e-5).  Each thread keeps a quarter of the
+// row's q and accumulator in registers, as float4 chunks interleaved across
+// the four threads (chunk c of thread r covers dims 4*(r + 4c) .. +3), so a
+// warp's shared-memory reads of a key touch four consecutive 16-byte words
+// and never conflict.  Keys and values go through shared memory in
+// sub-tiles of kKeys rows; the online update runs per sub-tile.  The dot
+// product's four partial sums meet by two xor shuffles, and IEEE addition
+// commutes, so all four threads of a row hold the same score bit for bit.
+//
+// bf16 body: a CTA covers up to 128 query rows as two consumer warpgroups of
+// 64 rows (wgmma's m64) and a producer warpgroup that loads with one warp.
+// ptxas budgets the kernel's 384 threads at 168 registers each; the
+// producer drops to 56 and the consumers rise to 224 (setmaxnreg), which
+// keeps S, P and O of the D = 128 instances out of local memory.  A lone
+// producer warp would not save registers: ptxas budgets a wgmma kernel by
+// whole warpgroups.  The producer loads Q once
+// per tile and K, V in stages of 128 keys through a two-stage ring in
+// dynamic shared memory, by TMA (a 3-D tensor map over (D, T, heads): a box
+// past T or D is zero-filled, no padding copy) into the 128-byte swizzle
+// that wgmma reads without bank conflicts, completing on mbarriers; it
+// loads one stage ahead of the consumers.  Rows that are not a multiple of
+// 16 bytes, or tensors not 16-byte aligned, are loaded by the producer
+// warp's plain loads into the same layout.  Per stage each consumer
+// warpgroup computes S = Q.K^T (wgmma m64n128k16, both operands K-major in
+// shared memory, D padded by zero columns to 64 or 128), the online softmax
+// on the accumulator fragments (each row's max and sum over the four threads
+// that hold it, by shuffles; scores in log2 units, so p = 2^(s*c - m)), masks
+// only the stages that cross an edge (the causal diagonal, the SWA band, the
+// kv length or the walk's end, the tile's rows), and O += P.V (wgmma with P
+// as the register A operand, S's accumulator layout packed to bf16x2, and V
+// through the transposed-B mode).  O stays in f32 registers; the epilogue
+// divides by l (l = 0 writes 0) and stores bf16.
 //
 // Skipping: the TPU kernel skips a kv block exactly where its `relevant`
 // test is false (beyond the causal frontier, outside the SWA band).  The
 // relevant blocks are one contiguous run, and every key outside it is
-// masked for every row of the tile, so the kernel walks just that run of
-// keys, sub-tile by sub-tile: the result is the TPU kernel's, and a key the
-// last sub-tile reads past the run contributes exactly zero.  The
-// persistent kernel walks its tile's ceil(limit / blk_k) kv blocks, with
-// limit = min(len_b, q_start + blk_q) when causal, else len_b.
+// masked for every row of the tile, so both bodies walk just that run of
+// keys: the result is the TPU kernel's.  The persistent kernel walks its
+// tile's ceil(limit / blk_k) kv blocks, with limit = min(len_b, q_start +
+// blk_q) when causal, else len_b.  blk_k sets only the walk's range; the
+// bodies step through it in their own sub-tiles.
 //
 // The static grid puts the longest causal q blocks first (blockIdx.y runs
 // backwards), so the last wave holds the short tiles.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
 
 #include "device_guard.cuh"
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kKeys = 32;          // keys per shared-memory sub-tile
-constexpr int kThreadsPerRow = 4;  // a query row's threads split its head dim
-constexpr int kMaxThreads = 512;   // blk_q <= 128
-
-// Element i of an f32 or bf16 tensor, as f32 (the C entry points' dtype:
-// 0 is f32, 1 is bf16).  The type is a flag rather than a template
-// parameter: it only touches loads and stores, and one instance per
-// head-dim class halves what nvcc compiles.
-__device__ __forceinline__ float load(const void* p, size_t i, bool bf16) {
-    return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
-                : static_cast<const float*>(p)[i];
-}
-__device__ __forceinline__ void store(void* p, size_t i, float x, bool bf16) {
-    if (bf16) {
-        static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(x);
-    } else {
-        static_cast<float*>(p)[i] = x;
-    }
-}
-
-__device__ __forceinline__ float comp(const float4& a, int e) {
-    return e == 0 ? a.x : e == 1 ? a.y : e == 2 ? a.z : a.w;
-}
+constexpr int kMaxBlkQ = 128;
 
 // What masks a tile's scores, and which keys it walks.
 struct TileMask {
@@ -86,13 +96,25 @@ struct TileMask {
     int window;
 };
 
+// ---------------------------------------------------------------------------
+// f32 body
+// ---------------------------------------------------------------------------
+
+constexpr int kKeys = 32;          // keys per shared-memory sub-tile
+constexpr int kThreadsPerRow = 4;  // a query row's threads split its head dim
+constexpr int kMaxThreads = kThreadsPerRow * kMaxBlkQ;
+
+__device__ __forceinline__ float comp(const float4& a, int e) {
+    return e == 0 ? a.x : e == 1 ? a.y : e == 2 ? a.z : a.w;
+}
+
 // One tile: rows [q_start, q_start + blockDim.x / 4) of one head against
 // its kv head.  The head's (Tq, D) rows of q and o start at element q_at,
 // the kv head's (Tk, D) rows of k and v at kv_at.  Every thread of the CTA
 // calls it (it synchronizes).  q is multiplied by q_scale when loaded and
 // the dot by s_scale: one of the two is 1, which leaves a value unchanged.
 template <int NC>
-__device__ void attend_tile(const void* q, const void* k, const void* v, void* o, bool bf16,
+__device__ void attend_tile(const float* q, const float* k, const float* v, float* o,
                             size_t q_at, size_t kv_at, int q_start, int D, const TileMask& mk,
                             float q_scale, float s_scale, float* Ks, float* Vs) {
     constexpr int DP = 16 * NC;  // head dim padded to the threads' float4 chunks
@@ -107,9 +129,7 @@ __device__ void attend_tile(const void* q, const void* k, const void* v, void* o
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
             const int d = 4 * (sub + kThreadsPerRow * c) + e;
-            x[e] = (row_ok && d < D)
-                       ? load(q, q_at + static_cast<size_t>(row) * D + d, bf16) * q_scale
-                       : 0.0f;
+            x[e] = (row_ok && d < D) ? q[q_at + static_cast<size_t>(row) * D + d] * q_scale : 0.0f;
         }
         qr[c] = make_float4(x[0], x[1], x[2], x[3]);
         acc[c] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -122,8 +142,8 @@ __device__ void attend_tile(const void* q, const void* k, const void* v, void* o
             const int col = kv0 + e / DP, d = e % DP;
             const bool in = col < mk.kv_hi && d < D;
             const size_t at = kv_at + static_cast<size_t>(col) * D + d;
-            Ks[e] = in ? load(k, at, bf16) : 0.0f;
-            Vs[e] = in ? load(v, at, bf16) : 0.0f;
+            Ks[e] = in ? k[at] : 0.0f;
+            Vs[e] = in ? v[at] : 0.0f;
         }
         __syncthreads();
 
@@ -189,26 +209,474 @@ __device__ void attend_tile(const void* q, const void* k, const void* v, void* o
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
             const int d = 4 * (sub + kThreadsPerRow * c) + e;
-            if (d < D) {
-                store(o, q_at + static_cast<size_t>(row) * D + d, comp(acc[c], e) / safe, bf16);
-            }
+            if (d < D) o[q_at + static_cast<size_t>(row) * D + d] = comp(acc[c], e) / safe;
         }
     }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 body: wgmma tensor cores, TMA-fed K/V
+// ---------------------------------------------------------------------------
+
+// The tensor maps of one launch's q, k and v (bf16 instances with tma set).
+struct TmaMaps {
+    CUtensorMap q, k, v;
+};
+
+namespace tc {
+
+constexpr int kRows = 64;                      // query rows per consumer warpgroup
+constexpr int kKeys = 128;                     // keys per pipeline stage (S is m64n128)
+constexpr int kStages = 2;                     // K/V ring depth
+constexpr int kPanel = 64;                     // bf16 columns per 128-byte swizzled row
+constexpr int kThreads = 3 * 128;              // two consumer warpgroups, one producer warpgroup
+constexpr int kProducerRegs = 56;              // setmaxnreg: the producer gives registers to
+constexpr int kConsumerRegs = 224;             // the consumers (128 * (56 + 2*224) = 384 * 168)
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Dynamic shared memory of the DP instance, from a 1024-byte-aligned base
+// (the 128-byte swizzle repeats every 8 rows of 128 bytes): Q as [warpgroup]
+// [panel][64 rows], then each stage's K and V as [panel][128 keys], each
+// row 128 bytes; then the barriers.
+template <int DP>
+struct Layout {
+    static constexpr int kPanels = DP / kPanel;
+    static constexpr int kQBytes = kPanels * kRows * 128;   // one warpgroup's Q rows
+    static constexpr int kKVBytes = kPanels * kKeys * 128;  // K (or V) of one stage
+    static constexpr int kK = 2 * kQBytes;                  // stage s: K at kK + 2*s*kKVBytes
+    static constexpr int kBar = kK + kStages * 2 * kKVBytes;
+    static constexpr int kBytes = kBar + 8 * (2 * kStages + 2) + 1024;  // + alignment slack
+};
+
+// Threads of a launch: one consumer warpgroup per 64 rows of the q block,
+// then the producer warpgroup.
+inline int threads(int blk_q) { return (blk_q > kRows ? 3 : 2) * 128; }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// Arrive, and expect `bytes` of asynchronous copies before the phase ends.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+                 : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.  A wait that
+// never ends (a lost arrival) traps after ~2^28 polls, failing the launch
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+    for (uint32_t polls = 0;; ++polls) {
+        uint32_t done;
+        asm volatile(
+            "{\n"
+            ".reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n"
+            "}\n"
+            : "=r"(done)
+            : "r"(bar), "r"(parity)
+            : "memory");
+        if (done) return;
+        if (polls == (1u << 28)) __trap();
+    }
+}
+
+// One box of a 3-D tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                         int c2, uint32_t bar) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(dst),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+        : "memory");
+}
+
+// Make this thread's shared-memory writes visible to wgmma (the async proxy).
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// A wgmma shared-memory descriptor for a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets, layout type 1 (128B swizzle).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+    return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
+           static_cast<uint64_t>((lbo >> 4) & 0x3FFFu) << 16 |
+           static_cast<uint64_t>((sbo >> 4) & 0x3FFFu) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Keep the compiler from moving reads or writes of wgmma's registers
+// across the asynchronous product.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// S (+)= A.B, both operands K-major bf16 in 128-byte-swizzled shared memory
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// O (+)= P.V, P in registers (bf16x2), V MN-major (transposed B)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                             int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// O (+)= P.V, P in registers (bf16x2), V MN-major (transposed B)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                             int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+template <int DP>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DP / 2], const uint32_t (&a)[4], uint64_t b) {
+    if constexpr (DP == 64) {
+        wgmma_rs_n64(o, a, b, 1);
+    } else {
+        wgmma_rs_n128(o, a, b, 1);
+    }
+}
+
+// One tile of the walk: a (head, q block) and its run of kv stages.
+struct Tile {
+    int bh;       // query head of the flattened (B*H) axis
+    int kvh;      // its kv head of the flattened (B*Hkv) axis
+    int q_start;  // first query row
+    int n_kv;     // kKeys-wide stages from mk.kv_lo
+    TileMask mk;
+};
+
+// Plain loads of rows [row0, row0 + rows) of one head's (T, D) matrix into
+// the swizzled layout TMA writes ([panel][rows] of 128-byte rows); zeros
+// past T and past D.  The producer warp's 32 lanes share the work.
+template <int DP>
+__device__ void fill(uint8_t* dst, const __nv_bfloat16* src, int head, int T, int row0,
+                     int rows, int D) {
+    for (int e = threadIdx.x % 32; e < rows * DP; e += 32) {
+        const int r = e / DP, d = e % DP, row = row0 + r;
+        __nv_bfloat16 x = __float2bfloat16_rn(0.0f);
+        if (d < D && row < T) x = src[(static_cast<size_t>(head) * T + row) * D + d];
+        const int chunk = (d % kPanel) / 8;
+        *reinterpret_cast<__nv_bfloat16*>(dst + (d / kPanel) * rows * 128 + r * 128 +
+                                          ((chunk ^ (r & 7)) << 4) + (d % 8) * 2) = x;
+    }
+}
+
+// The CTA's tiles, in the order `for_tiles` hands them over; every thread
+// of the CTA calls this.  Args has the tensors, their maps and the shapes.
+template <int DP, typename Args, typename ForTiles>
+__device__ void attend(const Args& a, ForTiles for_tiles) {
+    using L = Layout<DP>;
+    extern __shared__ uint8_t smem_raw[];
+    const uint32_t raw = smem_addr(smem_raw);
+    const uint32_t base = (raw + 1023u) & ~1023u;
+    uint8_t* const smem = smem_raw + (base - raw);
+    const int nwg = a.blk_q > kRows ? 2 : 1;
+    const int consumers = 128 * nwg;
+    const uint32_t full = base + L::kBar;           // full[s]: stage s loaded
+    const uint32_t empty = full + 8 * kStages;      // empty[s]: stage s read by every consumer
+    const uint32_t q_full = empty + 8 * kStages;    // Q loaded
+    const uint32_t q_empty = q_full + 8;            // Q read by every consumer
+    const uint32_t loaders = a.tma ? 1 : 32;        // arrivals that complete a load
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < kStages; ++s) {
+            mbar_init(full + 8 * s, loaders);
+            mbar_init(empty + 8 * s, consumers);
+        }
+        mbar_init(q_full, loaders);
+        mbar_init(q_empty, consumers);
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+
+    // The ring's stage and phase run on across tiles: the n-th stage loaded
+    // by this CTA is slot n % kStages in use n / kStages, for producer and
+    // consumers alike, so nothing is reset between tiles.
+    const auto* q = static_cast<const __nv_bfloat16*>(a.q);
+    const auto* k = static_cast<const __nv_bfloat16*>(a.k);
+    const auto* v = static_cast<const __nv_bfloat16*>(a.v);
+    if (threadIdx.x >= consumers) {  // the producer warpgroup: its first warp loads
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+        if (threadIdx.x >= consumers + 32 || (a.tma && threadIdx.x % 32 != 0)) return;
+        uint32_t n = 0, t = 0;
+        for_tiles([&](const Tile& tl) {
+            mbar_wait(q_empty, (t & 1) ^ 1);
+            if (a.tma) {
+                mbar_expect_tx(q_full, nwg * L::kQBytes);
+                for (int w = 0; w < nwg; ++w)
+                    for (int p = 0; p < L::kPanels; ++p)
+                        tma_load(base + w * L::kQBytes + p * kRows * 128, &a.maps.q, p * kPanel,
+                                 tl.q_start + w * kRows, tl.bh, q_full);
+            } else {
+                for (int w = 0; w < nwg; ++w)
+                    fill<DP>(smem + w * L::kQBytes, q, tl.bh, a.Tq, tl.q_start + w * kRows,
+                             kRows, a.D);
+                fence_proxy_async();
+                mbar_arrive(q_full);
+            }
+            for (int i = 0; i < tl.n_kv; ++i, ++n) {
+                const uint32_t s = n % kStages, use = n / kStages;
+                const int kv0 = tl.mk.kv_lo + i * kKeys;
+                const uint32_t ks = base + L::kK + s * 2 * L::kKVBytes, vs = ks + L::kKVBytes;
+                mbar_wait(empty + 8 * s, (use & 1) ^ 1);
+                if (a.tma) {
+                    mbar_expect_tx(full + 8 * s, 2 * L::kKVBytes);
+                    for (int p = 0; p < L::kPanels; ++p) {
+                        tma_load(ks + p * kKeys * 128, &a.maps.k, p * kPanel, kv0, tl.kvh,
+                                 full + 8 * s);
+                        tma_load(vs + p * kKeys * 128, &a.maps.v, p * kPanel, kv0, tl.kvh,
+                                 full + 8 * s);
+                    }
+                } else {
+                    fill<DP>(smem + (ks - base), k, tl.kvh, a.Tk, kv0, kKeys, a.D);
+                    fill<DP>(smem + (vs - base), v, tl.kvh, a.Tk, kv0, kKeys, a.D);
+                    fence_proxy_async();
+                    mbar_arrive(full + 8 * s);
+                }
+            }
+            ++t;
+        });
+        return;
+    }
+
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+    // consumers: warpgroup wg holds rows [q_start + 64*wg, +64); a thread
+    // holds rows r_in and r_in + 8 of them, and in each 8-column block of
+    // an accumulator the columns c_in and c_in + 1 (wgmma's fragment layout)
+    const int wg = threadIdx.x / 128;
+    const int lane = threadIdx.x % 32;
+    const int r_in = 16 * ((threadIdx.x / 32) % 4) + lane / 4;
+    const int c_in = 2 * (lane % 4);
+    const float c = a.scale * kLog2e;  // scores in log2 units
+    const uint32_t q_wg = base + wg * L::kQBytes;
+    auto* out = static_cast<__nv_bfloat16*>(a.out);
+    uint32_t n = 0, t = 0;
+    for_tiles([&](const Tile& tl) {
+        const TileMask& mk = tl.mk;
+        const int rw0 = tl.q_start + wg * kRows;
+        const int row_end = min(mk.seq_q, tl.q_start + a.blk_q);  // rows past it are masked
+        const int col_end = min(mk.kv_len, mk.kv_hi);              // keys past it are masked
+        float o[DP / 2];
+#pragma unroll
+        for (int i = 0; i < DP / 2; ++i) o[i] = 0.0f;
+        float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};  // per row, m in log2 units
+
+        mbar_wait(q_full, t & 1);
+        for (int it = 0; it < tl.n_kv; ++it, ++n) {
+            const uint32_t s = n % kStages, use = n / kStages;
+            const int kv0 = mk.kv_lo + it * kKeys;
+            const uint32_t ks = base + L::kK + s * 2 * L::kKVBytes, vs = ks + L::kKVBytes;
+            mbar_wait(full + 8 * s, use & 1);
+
+            // S = Q.K^T: D/16 steps of k16, 32 bytes apart in a 128-byte
+            // row, the next 64 columns one panel on
+            float sc[kKeys / 2];
+#pragma unroll
+            for (int i = 0; i < kKeys / 2; ++i) sc[i] = 0.0f;
+            fence_regs(sc);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < DP / 16; ++kk) {
+                const uint32_t at = (kk % 4) * 32;
+                wgmma_ss_n128(sc, smem_desc(q_wg + (kk / 4) * kRows * 128 + at, 16, 1024),
+                              smem_desc(ks + (kk / 4) * kKeys * 128 + at, 16, 1024), kk > 0);
+            }
+            wgmma_commit();
+            wgmma_wait();
+            fence_regs(sc);
+
+            // masks, only where the stage crosses an edge
+            const bool interior = rw0 + kRows <= row_end && kv0 + kKeys <= col_end &&
+                                  (!mk.causal || kv0 + kKeys - 1 <= rw0) &&
+                                  (!mk.has_window || kv0 > rw0 + kRows - 1 - mk.window);
+            uint64_t keep = ~0ull;
+            if (!interior) {
+#pragma unroll
+                for (int i = 0; i < kKeys / 2; ++i) {
+                    const int row = rw0 + r_in + 8 * ((i / 2) % 2);
+                    const int col = kv0 + 8 * (i / 4) + c_in + i % 2;
+                    const bool ok = row < row_end && col < col_end &&
+                                    (!mk.causal || col <= row) &&
+                                    (!mk.has_window || col > row - mk.window);
+                    if (!ok) {
+                        sc[i] = kNegInf;
+                        keep &= ~(1ull << i);
+                    }
+                }
+            }
+
+            // online softmax: the row max over the quad that holds the row
+            float mx[2] = {kNegInf, kNegInf}, alpha[2], rs[2] = {0.0f, 0.0f};
+#pragma unroll
+            for (int i = 0; i < kKeys / 2; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+                mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+                const float m_new = fmaxf(m[h], mx[h] * c);
+                alpha[h] = ex2(m[h] - m_new);
+                m[h] = m_new;
+            }
+            // p = 2^(s*c - m), masked keys exactly 0 (the mask multiply);
+            // packed to bf16 in the A-fragment order of P.V's k16 steps
+            uint32_t pa[kKeys / 16][4];
+#pragma unroll
+            for (int kk = 0; kk < kKeys / 16; ++kk) {
+#pragma unroll
+                for (int r = 0; r < 4; ++r) {
+                    const int i = 8 * kk + 2 * r, h = r % 2;
+                    float p0 = ex2(__fmaf_rn(sc[i], c, -m[h]));
+                    float p1 = ex2(__fmaf_rn(sc[i + 1], c, -m[h]));
+                    if (!interior) {
+                        p0 = ((keep >> i) & 1ull) ? p0 : 0.0f;
+                        p1 = ((keep >> (i + 1)) & 1ull) ? p1 : 0.0f;
+                    }
+                    rs[h] = rs[h] + p0;
+                    rs[h] = rs[h] + p1;
+                    pa[kk][r] = pack_bf16(p0, p1);
+                }
+            }
+#pragma unroll
+            for (int h = 0; h < 2; ++h) l[h] = alpha[h] * l[h] + rs[h];
+#pragma unroll
+            for (int i = 0; i < DP / 2; ++i) o[i] *= alpha[(i / 2) % 2];
+
+            // O += P.V: BN/16 steps of k16 keys, 16 rows of 128 bytes apart;
+            // the panels of D are LBO apart
+            fence_regs(o);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < kKeys / 16; ++kk)
+                wgmma_pv<DP>(o, pa[kk], smem_desc(vs + kk * 16 * 128, kKeys * 128, 1024));
+            wgmma_commit();
+            wgmma_wait();
+            fence_regs(o);
+            mbar_arrive(empty + 8 * s);
+        }
+        mbar_arrive(q_empty);
+        ++t;
+
+        // epilogue: the row sums over the quad, o / l (l = 0 writes 0)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            l[h] = l[h] + __shfl_xor_sync(0xffffffffu, l[h], 1);
+            l[h] = l[h] + __shfl_xor_sync(0xffffffffu, l[h], 2);
+            const int row = rw0 + r_in + 8 * h;
+            if (row >= row_end) continue;
+            const float safe = l[h] > 0.0f ? l[h] : 1.0f;
+            __nv_bfloat16* orow = out + (static_cast<size_t>(tl.bh) * a.Tq + row) * a.D;
+#pragma unroll
+            for (int j = 0; j < DP / 8; ++j) {
+                const int col = 8 * j + c_in;
+                if (col >= a.D) break;
+                const float v0 = o[4 * j + 2 * h] / safe, v1 = o[4 * j + 2 * h + 1] / safe;
+                if (a.D % 2 == 0) {
+                    *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(v0, v1);
+                } else {
+                    orow[col] = __float2bfloat16_rn(v0);
+                    if (col + 1 < a.D) orow[col + 1] = __float2bfloat16_rn(v1);
+                }
+            }
+        }
+    });
+}
+
+}  // namespace tc
+
+// ---------------------------------------------------------------------------
+// kernels: T = float runs the f32 body with NC = W float4 chunks per thread,
+// T = __nv_bfloat16 the tensor-core body with the head dim padded to W
+// ---------------------------------------------------------------------------
+
+template <typename T>
+constexpr int kThreadsOf = std::is_same_v<T, float> ? kMaxThreads : tc::kThreads;
+
 struct StaticArgs {
+    TmaMaps maps;   // bf16 with tma set: q (D, Tq, B*H), k and v (D, Tk, B*Hkv)
     const void* q;  // (B*H, Tq, D)
     const void* k;  // (B*Hkv, Tk, D)
     const void* v;
     void* out;      // (B*H, Tq, D)
-    int bf16, H, Hkv, Tq, Tk, D, blk_q, blk_k, causal, has_window, window;
+    int H, Hkv, Tq, Tk, D, blk_q, blk_k, causal, has_window, window, tma;
     float scale;
 };
 
-template <int NC>
-__global__ void __launch_bounds__(kMaxThreads) fa_static_kernel(StaticArgs a) {
-    __shared__ __align__(16) float Ks[kKeys * 16 * NC];
-    __shared__ __align__(16) float Vs[kKeys * 16 * NC];
+template <typename T, int W>
+__global__ void __launch_bounds__(kThreadsOf<T>, 1)
+    fa_static_kernel(const __grid_constant__ StaticArgs a) {
     const int bh = blockIdx.x;
     const int q_start = (gridDim.y - 1 - blockIdx.y) * a.blk_q;
     const int kvh = bh / (a.H / a.Hkv);
@@ -231,12 +699,23 @@ __global__ void __launch_bounds__(kMaxThreads) fa_static_kernel(StaticArgs a) {
         mk.kv_lo = lo * a.blk_k;
         mk.kv_hi = min(hi * a.blk_k, a.Tk);
     }
-    attend_tile<NC>(a.q, a.k, a.v, a.out, a.bf16, static_cast<size_t>(bh) * a.Tq * a.D,
-                    static_cast<size_t>(kvh) * a.Tk * a.D, q_start, a.D, mk, 1.0f, a.scale, Ks,
-                    Vs);
+    if constexpr (std::is_same_v<T, float>) {
+        __shared__ __align__(16) float Ks[kKeys * 16 * W];
+        __shared__ __align__(16) float Vs[kKeys * 16 * W];
+        attend_tile<W>(static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+                       static_cast<const float*>(a.v), static_cast<float*>(a.out),
+                       static_cast<size_t>(bh) * a.Tq * a.D,
+                       static_cast<size_t>(kvh) * a.Tk * a.D, q_start, a.D, mk, 1.0f, a.scale,
+                       Ks, Vs);
+    } else {
+        const tc::Tile tile{bh, kvh, q_start, (mk.kv_hi - mk.kv_lo + tc::kKeys - 1) / tc::kKeys,
+                            mk};
+        tc::attend<W>(a, [&](auto&& f) { f(tile); });
+    }
 }
 
 struct PersistentArgs {
+    TmaMaps maps;        // as StaticArgs
     const int* nclaims;  // (W,)
     const int* starts;   // (W, C)
     const int* sizes;    // (W, C)
@@ -246,69 +725,166 @@ struct PersistentArgs {
     const void* v;
     const int* lengths;  // (B,)
     void* out;           // (B*H, Tq, D)
-    int bf16, H, Hkv, Tq, Tk, D, nq, blk_q, blk_k, causal;
+    int H, Hkv, Tq, Tk, D, nq, blk_q, blk_k, causal, tma;
     float scale;
 };
 
-template <int NC>
-__global__ void __launch_bounds__(kMaxThreads) fa_persistent_kernel(PersistentArgs a) {
-    __shared__ __align__(16) float Ks[kKeys * 16 * NC];
-    __shared__ __align__(16) float Vs[kKeys * 16 * NC];
+template <typename T, int W>
+__global__ void __launch_bounds__(kThreadsOf<T>, 1)
+    fa_persistent_kernel(const __grid_constant__ PersistentArgs a) {
     const int w = blockIdx.x;
     const int group = a.H / a.Hkv;
     const int n = a.nclaims[w];
-    for (int c = 0; c < n; ++c) {
-        const int st = a.starts[w * a.C + c];
-        const int sz = a.sizes[w * a.C + c];
-        for (int t = 0; t < sz; ++t) {
-            const int tile = st + t;
-            const int bh = tile / a.nq;
-            const int q_start = (tile - bh * a.nq) * a.blk_q;
-            const int b = bh / a.H;
-            const int kvh = b * a.Hkv + (bh - b * a.H) / group;
-            const int len_b = a.lengths[b];
-            // kv trip count: only the blocks this tile attends
-            const int limit = a.causal ? min(len_b, q_start + a.blk_q) : len_b;
-            const int jmax = (limit + a.blk_k - 1) / a.blk_k;
-            const TileMask mk{a.Tq, len_b, 0, min(jmax * a.blk_k, a.Tk), a.causal, 0, 0};
-            attend_tile<NC>(a.q, a.k, a.v, a.out, a.bf16, static_cast<size_t>(bh) * a.Tq * a.D,
-                            static_cast<size_t>(kvh) * a.Tk * a.D, q_start, a.D, mk, a.scale,
-                            1.0f, Ks, Vs);
+    // every claimed tile of this worker, in table order, handed to `f`
+    auto for_tiles = [&](auto&& f) {
+        for (int c = 0; c < n; ++c) {
+            const int st = a.starts[w * a.C + c];
+            const int sz = a.sizes[w * a.C + c];
+            for (int t = 0; t < sz; ++t) {
+                const int tile = st + t;
+                const int bh = tile / a.nq;
+                const int q_start = (tile - bh * a.nq) * a.blk_q;
+                const int b = bh / a.H;
+                const int kvh = b * a.Hkv + (bh - b * a.H) / group;
+                const int len_b = a.lengths[b];
+                // kv trip count: only the blocks this tile attends
+                const int limit = a.causal ? min(len_b, q_start + a.blk_q) : len_b;
+                const int jmax = (limit + a.blk_k - 1) / a.blk_k;
+                const TileMask mk{a.Tq, len_b, 0, min(jmax * a.blk_k, a.Tk), a.causal, 0, 0};
+                f(bh, kvh, q_start, mk);
+            }
         }
+    };
+    if constexpr (std::is_same_v<T, float>) {
+        __shared__ __align__(16) float Ks[kKeys * 16 * W];
+        __shared__ __align__(16) float Vs[kKeys * 16 * W];
+        for_tiles([&](int bh, int kvh, int q_start, const TileMask& mk) {
+            attend_tile<W>(static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+                           static_cast<const float*>(a.v), static_cast<float*>(a.out),
+                           static_cast<size_t>(bh) * a.Tq * a.D,
+                           static_cast<size_t>(kvh) * a.Tk * a.D, q_start, a.D, mk, a.scale,
+                           1.0f, Ks, Vs);
+        });
+    } else {
+        tc::attend<W>(a, [&](auto&& f) {
+            for_tiles([&](int bh, int kvh, int q_start, const TileMask& mk) {
+                f(tc::Tile{bh, kvh, q_start, (mk.kv_hi + tc::kKeys - 1) / tc::kKeys, mk});
+            });
+        });
     }
 }
 
-// float4 chunks per thread: the smallest of 1, 2, 4, 8 with 16 * NC >= D
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+// float4 chunks per thread of the f32 body: the smallest of 1, 2, 4, 8
+// with 16 * NC >= D
 int head_chunks(int D) {
     int nc = 1;
     while (16 * nc < D) nc *= 2;
     return nc;
 }
 
-template <int NC>
-void launch(const StaticArgs& a, int BH, cudaStream_t stream) {
-    const dim3 grid(BH, (a.Tq + a.blk_q - 1) / a.blk_q);
-    fa_static_kernel<NC><<<grid, kThreadsPerRow * a.blk_q, 0, stream>>>(a);
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, found through the runtime (the
+// library does not link libcuda).
+EncodeTiled encoder() {
+    static const EncodeTiled fn = [] {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult found{};
+        const cudaError_t err = cudaGetDriverEntryPointByVersion(
+            "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+        return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+                   ? reinterpret_cast<EncodeTiled>(p)
+                   : nullptr;
+    }();
+    return fn;
 }
 
-template <int NC>
-void launch(const PersistentArgs& a, int workers, cudaStream_t stream) {
-    fa_persistent_kernel<NC><<<workers, kThreadsPerRow * a.blk_q, 0, stream>>>(a);
+// A map over a (heads, T, D) bf16 tensor as (D, T, heads), boxes of 64
+// columns by `rows` rows, 128-byte swizzle, zeros out of bounds.
+bool encode(CUtensorMap* map, const void* base, int heads, int T, int D, int rows) {
+    const EncodeTiled fn = encoder();
+    if (fn == nullptr) return false;
+    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(T),
+                                static_cast<cuuint64_t>(heads)};
+    const cuuint64_t strides[2] = {2ull * D, 2ull * D * T};
+    const cuuint32_t box[3] = {static_cast<cuuint32_t>(tc::kPanel),
+                               static_cast<cuuint32_t>(rows), 1};
+    const cuuint32_t unit[3] = {1, 1, 1};
+    return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
+              box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// Launch the instance for the head dim.
+// TMA takes rows that are a multiple of 16 bytes from 16-byte-aligned
+// tensors; otherwise the producer warp loads them.  Returns false if a map
+// that TMA could take does not encode.
 template <typename Args>
-int dispatch(const Args& a, int grid_arg, void* stream) {
-    const auto s = static_cast<cudaStream_t>(stream);
-    if (a.D < 1 || a.D > 128 || a.blk_q > kMaxThreads / kThreadsPerRow || a.blk_q % 8 != 0)
-        return static_cast<int>(cudaErrorInvalidValue);
-    switch (head_chunks(a.D)) {
-        case 1: launch<1>(a, grid_arg, s); break;
-        case 2: launch<2>(a, grid_arg, s); break;
-        case 4: launch<4>(a, grid_arg, s); break;
-        default: launch<8>(a, grid_arg, s); break;
+bool set_maps(Args& a, int BH, int BHkv) {
+    const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+    a.tma = a.D % 8 == 0 && aligned(a.q) && aligned(a.k) && aligned(a.v);
+    if (!a.tma) return true;
+    return encode(&a.maps.q, a.q, BH, a.Tq, a.D, tc::kRows) &&
+           encode(&a.maps.k, a.k, BHkv, a.Tk, a.D, tc::kKeys) &&
+           encode(&a.maps.v, a.v, BHkv, a.Tk, a.D, tc::kKeys);
+}
+
+template <typename T, int W>
+cudaError_t launch(const StaticArgs& a, int BH, cudaStream_t stream) {
+    const dim3 grid(BH, (a.Tq + a.blk_q - 1) / a.blk_q);
+    if constexpr (std::is_same_v<T, float>) {
+        fa_static_kernel<T, W><<<grid, kThreadsPerRow * a.blk_q, 0, stream>>>(a);
+    } else {
+        // more than the 48 KB of shared memory a launch gets by default
+        const int bytes = tc::Layout<W>::kBytes;
+        const cudaError_t err = cudaFuncSetAttribute(
+            fa_static_kernel<T, W>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        if (err != cudaSuccess) return err;
+        fa_static_kernel<T, W><<<grid, tc::threads(a.blk_q), bytes, stream>>>(a);
     }
-    return static_cast<int>(cudaGetLastError());
+    return cudaGetLastError();
+}
+
+template <typename T, int W>
+cudaError_t launch(const PersistentArgs& a, int workers, cudaStream_t stream) {
+    if constexpr (std::is_same_v<T, float>) {
+        fa_persistent_kernel<T, W><<<workers, kThreadsPerRow * a.blk_q, 0, stream>>>(a);
+    } else {
+        // more than the 48 KB of shared memory a launch gets by default
+        const int bytes = tc::Layout<W>::kBytes;
+        const cudaError_t err = cudaFuncSetAttribute(
+            fa_persistent_kernel<T, W>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        if (err != cudaSuccess) return err;
+        fa_persistent_kernel<T, W><<<workers, tc::threads(a.blk_q), bytes, stream>>>(a);
+    }
+    return cudaGetLastError();
+}
+
+// Launch the instance for the dtype (0 f32, 1 bf16) and head dim.
+template <typename Args>
+int dispatch(Args& a, int dtype, int grid_arg, int BH, int BHkv, void* stream) {
+    const auto s = static_cast<cudaStream_t>(stream);
+    if (a.D < 1 || a.D > 128 || a.blk_q < 8 || a.blk_q > kMaxBlkQ || a.blk_q % 8 != 0 ||
+        a.blk_k < 1 || (dtype != 0 && dtype != 1))
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (dtype == 1) {
+        if (!set_maps(a, BH, BHkv)) return static_cast<int>(cudaErrorInvalidValue);
+        return static_cast<int>(a.D <= 64 ? launch<__nv_bfloat16, 64>(a, grid_arg, s)
+                                          : launch<__nv_bfloat16, 128>(a, grid_arg, s));
+    }
+    switch (head_chunks(a.D)) {
+        case 1: return static_cast<int>(launch<float, 1>(a, grid_arg, s));
+        case 2: return static_cast<int>(launch<float, 2>(a, grid_arg, s));
+        case 4: return static_cast<int>(launch<float, 4>(a, grid_arg, s));
+        default: return static_cast<int>(launch<float, 8>(a, grid_arg, s));
+    }
 }
 
 }  // namespace
@@ -319,38 +895,57 @@ extern "C" int repro_flash_attention(int device, int dtype, void* q, void* k, vo
                                      float scale, void* stream) {
     const DeviceGuard guard(device);
     if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
-    const StaticArgs a{q,  k, v,     out,   dtype,  H,          Hkv,    Tq,
-                       Tk, D, blk_q, blk_k, causal, has_window, window, scale};
-    return dispatch(a, BH, stream);
+    StaticArgs a{};
+    a.q = q;
+    a.k = k;
+    a.v = v;
+    a.out = out;
+    a.H = H;
+    a.Hkv = Hkv;
+    a.Tq = Tq;
+    a.Tk = Tk;
+    a.D = D;
+    a.blk_q = blk_q;
+    a.blk_k = blk_k;
+    a.causal = causal;
+    a.has_window = has_window;
+    a.window = window;
+    a.scale = scale;
+    return dispatch(a, dtype, BH, BH, BH / H * Hkv, stream);
 }
 
 extern "C" int repro_flash_attention_persistent(int device, int dtype, void* nclaims,
                                                 void* starts, void* sizes, int workers, int C,
                                                 void* q, void* k, void* v, void* lengths,
-                                                void* out, int H, int Hkv, int Tq, int Tk, int D,
-                                                int nq, int blk_q, int blk_k, int causal,
+                                                void* out, int B, int H, int Hkv, int Tq, int Tk,
+                                                int D, int nq, int blk_q, int blk_k, int causal,
                                                 float scale, void* stream) {
     const DeviceGuard guard(device);
     if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
-    const PersistentArgs a{static_cast<const int*>(nclaims),
-                           static_cast<const int*>(starts),
-                           static_cast<const int*>(sizes),
-                           C,
-                           q,
-                           k,
-                           v,
-                           static_cast<const int*>(lengths),
-                           out,
-                           dtype,
-                           H,
-                           Hkv,
-                           Tq,
-                           Tk,
-                           D,
-                           nq,
-                           blk_q,
-                           blk_k,
-                           causal,
-                           scale};
-    return dispatch(a, workers, stream);
+    PersistentArgs a{};
+    a.nclaims = static_cast<const int*>(nclaims);
+    a.starts = static_cast<const int*>(starts);
+    a.sizes = static_cast<const int*>(sizes);
+    a.C = C;
+    a.q = q;
+    a.k = k;
+    a.v = v;
+    a.lengths = static_cast<const int*>(lengths);
+    a.out = out;
+    a.H = H;
+    a.Hkv = Hkv;
+    a.Tq = Tq;
+    a.Tk = Tk;
+    a.D = D;
+    a.nq = nq;
+    a.blk_q = blk_q;
+    a.blk_k = blk_k;
+    a.causal = causal;
+    a.scale = scale;
+    return dispatch(a, dtype, workers, B * H, B * Hkv, stream);
+}
+
+// Dynamic shared memory a bf16 launch at head dim D asks for (bytes).
+extern "C" int repro_flash_attention_smem(int D) {
+    return D <= 64 ? tc::Layout<64>::kBytes : tc::Layout<128>::kBytes;
 }

@@ -23,7 +23,8 @@ from .ref import NEG_INF
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: the kernels keep a query row's accumulator in registers: head dim <= 128
 MAX_HEAD_DIM = 128
-#: four threads per query row: blk_q <= 128 keeps a CTA at 512 threads
+#: a CTA holds one q block: four threads per row in f32 (512 threads at
+#: 128), two 64-row tensor-core warpgroups in bf16
 MAX_BLK_Q = 128
 
 

@@ -126,10 +126,10 @@ def _persistent_cuda(nclaims, starts, sizes, q, k, v, lengths, *, causal,
     c_int, c_float, c_ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
     fn = _build.function("flash_attention", "repro_flash_attention_persistent",
                          c_int, c_int, *([c_ptr] * 3), c_int, c_int,
-                         *([c_ptr] * 5), *([c_int] * 9), c_float, c_ptr)
+                         *([c_ptr] * 5), *([c_int] * 10), c_float, c_ptr)
     err = fn(dev.index, DTYPE_CODE[q.dtype], *(_build.ptr(t) for t in tables[:3]),
              W, C, _build.ptr(q), _build.ptr(k), _build.ptr(v),
-             _build.ptr(tables[3]), _build.ptr(out), H, Hkv, Tq, Tk, D,
+             _build.ptr(tables[3]), _build.ptr(out), B, H, Hkv, Tq, Tk, D,
              -(-Tq // blk_q), blk_q, blk_k, int(causal), float(scale),
              _build.stream_of(q))
     _build.check(err, "flash attention persistent kernel")

@@ -8,14 +8,23 @@ bf16 within 3e-2, block invariance 1e-5, SWA covering the whole causal
 range equal to full attention within 1e-6, persistent attention within
 1e-5 of the oracle and of the static kernel, tile costs and schedules
 exactly equal.  The ``cuda`` tests hold the CUDA kernels against their
-plain versions at the same bars and skip without a card.  The JAX package
+plain versions at the same bars -- the f32 body and the bf16 tensor-core
+body (TMA and plain loads, one and two consumer warpgroups, the
+persistent ring across tiles), bf16 also within 5e-3 + 1e-2 |plain|,
+a bar that planted faults in the bf16 body must fail -- and skip without
+a card.  The JAX package
 is imported only by the parity tests (``jk`` fixture).
 """
+import ctypes
+import shutil
+import subprocess
+
 import numpy as np
 import pytest
 import torch
 
 import repro_torch.kernels as tk
+from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.kernel import _flash_plain
 from repro_torch.kernels.flash_attention.persistent import (
     _persistent_plain, varlen_tile_costs)
@@ -281,3 +290,155 @@ def test_persistent_kernel_matches_plain(causal):
     full, _ = tk.flash_attention_persistent(q, k, v, causal=causal, workers=7)
     torch.testing.assert_close(full, tk.flash_attention(q, k, v, causal=causal),
                                atol=1e-5, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# on the card: the bf16 tensor-core body (wgmma, TMA-fed K/V)
+# ---------------------------------------------------------------------------
+
+# |kernel - plain| <= 3e-2 and <= 5e-3 + 1e-2 |plain|: the relative part
+# covers the bf16 rounding of outputs of any size, the absolute part the
+# bf16 rounding of p before P.V
+BF16_BAR, BF16_ATOL, BF16_RTOL = 3e-2, 5e-3, 1e-2
+
+
+def _bf16_close(out, plain):
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), plain.float(), atol=BF16_BAR, rtol=0)
+    torch.testing.assert_close(out.float(), plain.float(), atol=BF16_ATOL, rtol=BF16_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hkv,Tq,Tk,D", SHAPES)
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_flash_kernel_bf16_matches_plain(B, H, Hkv, Tq, Tk, D, causal, window):
+    require_card()
+    q, k, v = _card(*_qkv(B, H, Hkv, Tq, Tk, D), dtype=torch.bfloat16)
+    out = tk.flash_attention(q, k, v, causal=causal, window=window)
+    _bf16_close(out, _flash_plain(q, k, v, causal=causal, window=window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [5, 8, 20, 32, 64, 120, 128])
+@pytest.mark.parametrize("blk_q,blk_k", [(128, 128), (64, 128), (128, 64), (16, 48)])
+def test_flash_kernel_bf16_head_dims_and_blocks(D, blk_q, blk_k):
+    """Rows that are not a multiple of 16 bytes (D = 5, 20) take the
+    producer warp's plain loads, the others TMA; an odd D stores element by
+    element; blk_q <= 64 runs one consumer warpgroup."""
+    require_card()
+    q, k, v = _card(*_qkv(2, 8, 2, 300, 300, D, seed=D), dtype=torch.bfloat16)
+    kw = {"causal": True, "window": 100, "blk_q": blk_q, "blk_k": blk_k}
+    _bf16_close(tk.flash_attention(q, k, v, **kw), _flash_plain(q, k, v, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 20])
+def test_flash_kernel_bf16_fully_masked_rows_are_zero(D):
+    require_card()
+    q, k, v = _card(*_qkv(1, 2, 1, 40, 40, D, seed=5), dtype=torch.bfloat16)
+    out = tk.flash_attention(q, k, v, causal=True, window=0, blk_q=16, blk_k=16)
+    assert torch.equal(out, torch.zeros_like(out))
+
+
+@pytest.mark.cuda
+def test_flash_kernel_bf16_unaligned_inputs_match_tma():
+    """Tensors 2 bytes off a 16-byte boundary cannot be read by TMA: the
+    producer's plain loads fill the same swizzled tiles, bit for bit."""
+    require_card()
+    q, k, v = _card(*_qkv(2, 4, 2, 200, 200, 64, seed=6), dtype=torch.bfloat16)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        return buf[1:].view(t.shape).copy_(t)
+
+    moved = tuple(shifted(t) for t in (q, k, v))
+    assert all(t.data_ptr() % 16 for t in moved)
+    assert torch.equal(tk.flash_attention(*moved, causal=True),
+                       tk.flash_attention(q, k, v, causal=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("blk_q,D", [(128, 64), (64, 20)])
+def test_persistent_kernel_bf16_matches_plain(causal, blk_q, D):
+    """Each worker walks many tiles, so the ring's stage and phase carry
+    across tiles."""
+    require_card()
+    rng = np.random.default_rng(3)
+    B, H, Hkv, T = 4, 8, 2, 260
+    q, k, v = _card(rng.normal(size=(B, H, T, D)).astype(np.float32),
+                    *(rng.normal(size=(B, Hkv, T, D)).astype(np.float32) for _ in range(2)),
+                    dtype=torch.bfloat16)
+    lengths = rng.integers(T // 8, T + 1, B).astype(np.int32)
+    blocks = {"blk_q": blk_q, "blk_k": 128}
+    for technique in ("gss", "fac2", "ss"):
+        out, sched = tk.flash_attention_persistent(
+            q, k, v, lengths=lengths, causal=causal, technique=technique, workers=7, **blocks)
+        _bf16_close(out, _persistent_plain(*sched.worker_lists(), q, k, v, lengths,
+                                           causal=causal, scale=D ** -0.5, **blocks))
+    full, _ = tk.flash_attention_persistent(q, k, v, causal=causal, workers=7, **blocks)
+    _bf16_close(full, tk.flash_attention(q, k, v, causal=causal, **blocks))
+
+
+# one line of the bf16 body changed: the scores' log2 e dropped (every
+# stage), P.V skipped on the second stage of tiles past the diagonal, and
+# the scores of interior stages 5 % off (the last two reach only rows that
+# attend over more than one stage)
+PLANTED = {
+    "log2e_dropped": ("const float c = a.scale * kLog2e;", "const float c = a.scale;"),
+    "interior_pv_skipped": ("wgmma_pv<DP>(o, pa[kk], ",
+                            "if (!interior || it != 1) wgmma_pv<DP>(o, pa[kk], "),
+    "interior_scale_off": ("uint64_t keep = ~0ull;",
+                           "uint64_t keep = ~0ull;\n"
+                           "if (interior) for (int i = 0; i < kKeys / 2; ++i) sc[i] *= 1.05f;"),
+}
+
+
+@pytest.fixture(scope="module")
+def planted(tmp_path_factory):
+    """fault -> the attention library built with it, all built at once."""
+    require_card()
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    root = tmp_path_factory.mktemp("planted")
+    procs = {}
+    for fault, (old, new) in PLANTED.items():
+        assert src.count(old) == 1, fault
+        d = root / fault
+        d.mkdir()
+        for h in _build.CSRC.glob("*.cuh"):
+            shutil.copy(h, d)
+        (d / "flash_attention.cu").write_text(src.replace(old, new))
+        lib = d / "flash_attention.so"
+        procs[fault] = lib, subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib),
+             str(d / "flash_attention.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for fault, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        assert proc.returncode == 0, f"{fault}: {log}"
+    return {fault: lib for fault, (lib, _) in procs.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", list(PLANTED))
+def test_flash_kernel_bf16_bars_fail_planted_faults(planted, fault, monkeypatch):
+    """At tinyllama-1.1b's geometry the sound kernel passes the bf16 bars and
+    the same kernel with one planted fault fails them (``-s`` prints both
+    readings)."""
+    q, k, v = _card(*_qkv(4, 32, 4, 2048, 2048, 64, seed=7), dtype=torch.bfloat16)
+    plain = _flash_plain(q, k, v, causal=True)
+    sound = tk.flash_attention(q, k, v, causal=True)
+    monkeypatch.setattr(_build, "library", lambda name: ctypes.CDLL(str(planted[fault])))
+    _build.function.cache_clear()
+    try:
+        bad = tk.flash_attention(q, k, v, causal=True)
+    finally:
+        monkeypatch.undo()
+        _build.function.cache_clear()
+    for what, out in (("sound", sound), (fault, bad)):
+        d = (out.float() - plain.float()).abs()
+        print(f"bf16 bars, {what}: max |kernel - plain| {float(d.max())!r}, slack over "
+              f"{BF16_RTOL} |plain| {float((d - BF16_RTOL * plain.float().abs()).max())!r}")
+    _bf16_close(sound, plain)
+    with pytest.raises(AssertionError):
+        _bf16_close(bad, plain)
