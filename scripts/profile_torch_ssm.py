@@ -11,8 +11,9 @@ random weights from seed 0 in bf16:
   * the serving engine's decode step at B=16 after a 512-token prefill.
 
 For each it prints the wall time per call, the device time the profiler
-saw (kernels and copies), the device's busy share of the wall time, and
-the kernels that took the most device time.  ``--trace`` also writes
+saw (kernels and copies), the device's busy share of the wall time, the
+kernels that took the most device time, and the SSD scan's own kernels
+(``ssd_*``) with their sum.  ``--trace`` also writes
 Chrome traces.  Exits 2 without a card.
 """
 from __future__ import annotations
@@ -59,9 +60,13 @@ def profile(what, fn, reps, trace_dir):
     print(f"\n== {what}: {wall_ms!r} ms wall per call, {dev_ms!r} ms device time "
           f"(busy {dev_ms / wall_ms!r} of the wall time), {launches!r} kernels "
           f"per call under {len(events)} names")
-    for e in sorted(events, key=device_us, reverse=True)[:12]:
+    ranked = sorted(events, key=device_us, reverse=True)
+    # the top 12, then the scan's own kernels wherever they rank
+    for e in ranked[:12] + [e for e in ranked[12:] if "ssd_" in e.key]:
         ms = device_us(e) / 1e3 / reps
         print(f"  {ms:10.4f} ms {ms / dev_ms:7.2%} x{e.count // reps:<6d} {e.key[:90]}")
+    scan_ms = sum(device_us(e) for e in events if "ssd_" in e.key) / 1e3 / reps
+    print(f"  the SSD scan's kernels together: {scan_ms!r} ms ({scan_ms / dev_ms:.2%})")
     if trace_dir:
         path = Path(trace_dir) / f"{what.split(':')[0].replace(' ', '_')}.json"
         prof.export_chrome_trace(str(path))

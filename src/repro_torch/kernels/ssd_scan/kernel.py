@@ -13,10 +13,13 @@ chunk, with ``acum = cumsum(dt * A[h])``:
     y       = W x + (C o exp(acum)) h                          (L, Dh)
     h      <- exp(acum[-1]) h + (B o dt exp(acum[-1] - acum))^T x   (S, Dh)
 
-``ssd_scan_cuda`` launches ``csrc/ssd_scan.cu`` (one CTA per (batch, head)
-walking the chunks in order, the state in shared memory); ``_ssd_plain``
-is the same per-chunk algorithm in tensor code (``ref.ssd_scan_chunked_xla``,
-vectorised over batch and heads), and is the path on the CPU.  Design and bound notes are in the CUDA
+``ssd_scan_cuda`` launches ``csrc/ssd_scan.cu``: f32 inputs run one CTA per
+(batch, head) walking the chunks in order, the state in shared memory, on
+the f32 units; bf16 inputs run the chunk-parallel body on wgmma tensor
+cores (chunk states, state passing, chunk scan) over a workspace the
+wrapper allocates.  ``_ssd_plain`` is the same per-chunk algorithm in
+tensor code (``ref.ssd_scan_chunked_xla``, vectorised over batch and
+heads), and is the path on the CPU.  Design and bound notes are in the CUDA
 source.
 """
 from __future__ import annotations
@@ -41,11 +44,35 @@ MAX_SMEM_BYTES = 232_448
 
 
 def smem_bytes(chunk: int, S: int, Dh: int) -> int:
-    """Shared memory of one CTA: B^T (S, L+1), x (L, Dh), the state (S, Dh),
-    the C and W row blocks (32, S) and (32, L), and four (L,) vectors, f32
-    (``csrc/ssd_scan.cu`` lays it out the same way)."""
+    """Shared memory of one CTA of the f32 body: B^T (S, L+1), x (L, Dh),
+    the state (S, Dh), the C and W row blocks (32, S) and (32, L), and four
+    (L,) vectors, f32 (``csrc/ssd_scan.cu`` lays it out the same way)."""
     return 4 * (S * (chunk + 1) + chunk * Dh + S * Dh + ROW_BLOCK * (S + chunk)
                 + 4 * chunk)
+
+
+def _padded(n: int) -> int:
+    """Rows (Dh) or columns (S) of the tensor-core body's tiles: 64 or 128."""
+    return 64 if n <= 64 else 128
+
+
+def tc_smem_bytes(Dh: int) -> tuple:
+    """Dynamic shared memory of the bf16 body's two tiled kernels at head dim
+    ``Dh`` (``csrc/ssd_scan.cu``'s ``tc::Layout``): the chunk-states kernel
+    holds B and x as 128-row tiles of 128-byte rows (S padded to 128 columns,
+    Dh to 64 or 128), the chunk-scan kernel B, C, x and h_in's bf16 hi and
+    lo image; both add acum (f32), dt (bf16) and one mbarrier."""
+    panel, x_panels, small = 128 * 128, _padded(Dh) // 64, 128 * 4 + 128 * 2 + 8
+    return ((2 + x_panels) * panel + small,
+            (4 + x_panels) * panel + 4 * 128 * _padded(Dh) + small)
+
+
+def workspace_shape(B: int, T: int, H: int, Dh: int, chunk: int) -> tuple:
+    """The bf16 body's f32 workspace: one slot of Dh' x 128 floats per
+    (batch, head, chunk) -- the chunk's state increment, then h_in as its
+    bf16 hi/lo image in place -- and the chunks' decays."""
+    nc = -(-T // chunk)
+    return (B, H, nc, _padded(Dh) * 128), (B, H, nc)
 
 
 def _row_strided(t, inner: tuple):
@@ -98,7 +125,10 @@ def ssd_scan_cuda(x, dt, A, Bm, Cm, *, chunk: int = 128):
     projection): the kernel takes their batch and time strides, so only a
     view whose inner dims are not packed is copied.  T need not be a
     multiple of ``chunk``: the kernel reads zeros past T, which is the
-    reference's zero padding without the copy.
+    reference's zero padding without the copy.  bf16 inputs launch three
+    kernels (chunk states, state passing, chunk scan) over a workspace
+    allocated here (``workspace_shape``); ``LAUNCHES["ssd_scan"]`` counts
+    one per scan all the same.
     """
     Bsz, T, H, Dh, S = check_kernel_inputs(x, dt, A, Bm, Cm, chunk)
     x = _row_strided(x, (Dh, 1))
@@ -107,11 +137,18 @@ def ssd_scan_cuda(x, dt, A, Bm, Cm, *, chunk: int = 128):
     Cm = _row_strided(Cm, (1,))
     A = A.contiguous()
     y = torch.empty((Bsz, T, H, Dh), dtype=x.dtype, device=x.device)
+    ws = decay = None
+    if x.dtype == torch.bfloat16:
+        ws_shape, decay_shape = workspace_shape(Bsz, T, H, Dh, chunk)
+        ws = torch.empty(ws_shape, dtype=torch.float32, device=x.device)
+        decay = torch.empty(decay_shape, dtype=torch.float32, device=x.device)
     c_int, c_ll, c_ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
     fn = _build.function("ssd_scan", "repro_ssd_scan", c_int, c_int,
-                         *([c_ptr] * 6), *([c_int] * 6), *([c_ll] * 8), c_ptr)
+                         *([c_ptr] * 8), *([c_int] * 6), *([c_ll] * 8), c_ptr)
     err = fn(x.device.index, DTYPE_CODE[x.dtype], _build.ptr(x), _build.ptr(dt),
              _build.ptr(A), _build.ptr(Bm), _build.ptr(Cm), _build.ptr(y),
+             None if ws is None else _build.ptr(ws),
+             None if decay is None else _build.ptr(decay),
              Bsz, T, H, Dh, S, chunk,
              x.stride(0), x.stride(1), dt.stride(0), dt.stride(1),
              Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1),
