@@ -15,9 +15,12 @@ protocol and applications through the port's public entry points:
      both by the protocol kernel and by host claims through the window's
      fetch-add kernel;
   3. the static Mandelbrot kernel at 4096x4096, CT 2000;
-  4. the persistent Mandelbrot kernel over the gss and fac2 schedules;
+  4. the persistent Mandelbrot kernel over the gss, fac2 and ss schedules
+     (then, timed, each worker's busy time alone against its modeled
+     clock: the "workers" lines);
   5. PSIA spin images: 800,000 points (the paper's object size) and 8,192
-     images, W=5, support angle 2.0, bin size 0.05;
+     images, W=5, support angle 2.0, bin size 0.05 (and how many pairs the
+     exact tests pass: the "gate" line and the row's bound);
   6. the tinyllama-1.1b forward at full width (22 layers, B=4 prompts of
      2048 tokens, random weights from seed 0) through ``api.forward`` with
      ``backend="pallas"`` (the static attention kernel in every layer) and
@@ -79,8 +82,14 @@ BF16_FLOPS_PER_S = 989e12
 TECHNIQUES = ("static", "ss", "gss", "tss", "fac2")
 IMG, CT, TILE = 4096, 2000, 64
 N_POINTS, N_IMAGES, IMG_W, SUPPORT, BIN = 800_000, 8192, 5, 2.0, 0.05
-MANDEL_OPS_PER_ITER = 16  # 15 f32 arithmetic operations and one compare
-SPIN_OPS_PER_PAIR = 32    # diff 3, beta 5, r2 5, alpha 4, cos 5, bins 5, gates 5
+# Mandelbrot: 13 f32 arithmetic operations and one compare per iteration
+# (|z|^2's two products are the next iteration's zr*zr and zi*zi); bounds
+# that count those products anew (16 operations) are printed beside
+MANDEL_OPS_PER_ITER, MANDEL_OPS_PER_ITER_ANEW = 14, 16
+# spin images: every pair needs beta and two compares (diff 3, beta 5);
+# only pairs whose bin row k is in [0, W) need the other 24 (r2 5, alpha 4,
+# cos 5, bins 5, gates 5); the all-pairs bound counts 32 for every pair
+SPIN_OPS_PER_PAIR, SPIN_OPS_K_PAIR = 8, 24
 REPS = 5
 
 
@@ -140,6 +149,51 @@ def kernel_row(name, source, replaces, launches, max_abs_err, ms, plain_ms,
                 launches=launches, max_abs_err=max_abs_err, ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=library_ms)
+
+
+def worker_iterations(schedule, costs):
+    """(P,) float64: each worker's modeled busy time, the sum of the escape
+    counts of the tiles its claim table holds."""
+    import numpy as np
+
+    nclaims, starts, sizes = schedule.worker_lists()
+    return np.array([sum(float(costs[s:s + z].sum())
+                         for s, z in zip(starts[w, :n], sizes[w, :n]))
+                     for w, n in enumerate(nclaims)])
+
+
+def worker_times(schedule, run):
+    """(P,) ms: each worker's busy time on the card, alone -- ``run`` over
+    the claim tables with every other worker's ``nclaims`` zeroed, one
+    CUDA-event timing each (after one warm-up of the whole schedule)."""
+    import numpy as np
+    import torch
+
+    nclaims, starts, sizes = schedule.worker_lists()
+    run(nclaims, starts, sizes)
+    times = []
+    for w in range(len(nclaims)):
+        only = np.zeros_like(nclaims)
+        only[w] = nclaims[w]
+        nc = torch.from_numpy(only).cuda()
+        times.append(cuda_ms(lambda: run(nc, starts, sizes), reps=1, warmup=False))
+    return np.array(times)
+
+
+def report_workers(name, real_ms, iters, full_ms):
+    """Print the per-worker real / modeled line: the spread of the ratio
+    says whether the cost model (modeled iterations) tracks what the body
+    pays, apart from the schedule's modeled imbalance."""
+    ratio = real_ms / iters.clip(min=1.0) * 1e9  # ms per 1e9 iterations
+    r = [float(x) for x in ratio[iters > 0]]
+    heavy = int(iters.argmax())
+    print(f"workers {name}: real / modeled = {statistics.median(r)!r} ms per "
+          f"1e9 iterations (median), min {min(r)!r}, max {max(r)!r}, max/min "
+          f"{max(r) / min(r)!r}, cv {statistics.pstdev(r) / statistics.mean(r)!r}; "
+          f"modeled makespan / ideal {float(iters.max() / iters.mean())!r}; "
+          f"alone: slowest worker {float(real_ms.max())!r} ms (worker "
+          f"{int(real_ms.argmax())}), heaviest modeled worker (worker {heavy}) "
+          f"{float(real_ms[heavy])!r} ms; whole grid {full_ms!r} ms")
 
 
 def claims_in_grant_order(rep):
@@ -897,6 +951,7 @@ def main() -> int:
         spin_images_oracle)
     from repro_torch.kernels.mandelbrot.persistent import (
         _persistent_cuda, _persistent_plain, mandelbrot_tile_costs)
+    from repro_torch.kernels.spin_image.ref import spin_pair_counts
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -936,7 +991,7 @@ def main() -> int:
     rep513 = dls.execute(s513, None, executor="device")
     s513h = dls.loop(513, "gss", P=3, runtime="device")
     rep513h = dls.execute(s513h, None, executor="serial")
-    schedules = {t: claim_schedule(t, N, P, costs=costs) for t in ("gss", "fac2")}
+    schedules = {t: claim_schedule(t, N, P, costs=costs) for t in ("gss", "fac2", "ss")}
     persistent = {t: mandelbrot_persistent(
         IMG, ct=CT, block_h=TILE, block_w=TILE, workers=P, schedule=schedules[t])[0]
         for t in schedules}
@@ -1012,7 +1067,7 @@ def main() -> int:
                                    device=dev)
     check(torch.equal(pers_plain, persistent["gss"]), "persistent kernel == plain")
     err["mandelbrot_persistent"] = float((pers_plain - persistent["gss"]).abs().max())
-    print("mandelbrot persistent (gss, fac2) == static exactly; == plain")
+    print("mandelbrot persistent (gss, fac2, ss) == static exactly; == plain")
 
     # -- 5. spin images vs plain ---------------------------------------------
     spin_plain = spin_images_oracle(points, normals, N_IMAGES, img_width=IMG_W,
@@ -1025,6 +1080,13 @@ def main() -> int:
     print(f"spin images: {N_POINTS} points x {N_IMAGES} images (cut from the "
           f"paper's 288,000 images), W={IMG_W}, bin {BIN}: all {N_IMAGES} == "
           f"plain exactly; mean {per_image.mean().item():.1f} points/image")
+    pairs = spin_pair_counts(points, normals, N_IMAGES, img_width=IMG_W,
+                             bin_size=BIN, support_angle=SUPPORT, point_chunk=4096)
+    check(pairs["land"] == int(per_image.sum()), "gate counts: landed == histograms' total")
+    print(f"gate: of {pairs['pairs']} pairs (exact tests, plain version) "
+          f"{pairs['k']} have k in [0, W) ({pairs['k'] / pairs['pairs']!r}), "
+          f"{pairs['kl']} k and l ({pairs['kl'] / pairs['pairs']!r}), "
+          f"{pairs['land']} land ({pairs['land'] / pairs['pairs']!r})")
 
     # window fetch-add: the same RMW sequence on a CUDA and a CPU slab
     wslab = torch.zeros(2, dtype=torch.int32, device=dev)
@@ -1076,26 +1138,41 @@ def main() -> int:
         cuda_ms(lambda: mandelbrot(IMG, ct=CT)),
         cuda_ms(lambda: mandelbrot_ref(IMG, ct=CT), **once),
         mb_bytes, MANDEL_OPS_PER_ITER * sum_counts)
+    print(f"  mandelbrot_static bound at {MANDEL_OPS_PER_ITER_ANEW} operations per "
+          f"iteration: {bound(mb_bytes, MANDEL_OPS_PER_ITER_ANEW * sum_counts)[0]!r} ms")
 
-    def persistent_ms(t):
-        tables = schedules[t].worker_lists()
-        return cuda_ms(lambda: _persistent_cuda(
+    def run_persistent(*tables):
+        return _persistent_cuda(
             *tables, width=IMG, height=IMG, ct=CT, xlim=(-2.0, 1.0),
             ylim=(-1.5, 1.5), block_h=TILE, block_w=TILE, gw=IMG // TILE,
-            device=dev))
+            device=dev)
 
-    schedules["ss"] = claim_schedule("ss", N, P, costs=costs)
-    for t in ("fac2", "ss"):
-        print(f"time mandelbrot_persistent over the {t} schedule: "
-              f"{persistent_ms(t)!r} ms")
+    # per schedule: the time, and the schedule-aware bound -- the busiest
+    # worker's modeled iterations on one SM's share of the f32 rate
+    pers_ms, sched_bound = {}, {}
+    for t in ("gss", "fac2", "ss"):
+        tables = schedules[t].worker_lists()
+        pers_ms[t] = cuda_ms(lambda: run_persistent(*tables))
+        iters = worker_iterations(schedules[t], costs)
+        sched_bound[t] = MANDEL_OPS_PER_ITER * float(iters.max()) / (F32_OPS_PER_S / P) * 1e3
+        print(f"time mandelbrot_persistent over the {t} schedule: {pers_ms[t]!r} ms; "
+              f"schedule-aware bound {sched_bound[t]!r} ms (at "
+              f"{MANDEL_OPS_PER_ITER_ANEW} operations per iteration "
+              f"{sched_bound[t] * MANDEL_OPS_PER_ITER_ANEW / MANDEL_OPS_PER_ITER!r})")
+        if t != "fac2":
+            report_workers(t, worker_times(schedules[t], run_persistent), iters, pers_ms[t])
     row("mandelbrot_persistent", "src/repro_torch/csrc/mandelbrot.cu",
-        "src/repro/kernels/mandelbrot/persistent.py:28",
-        persistent_ms("gss"),
+        "src/repro/kernels/mandelbrot/persistent.py:28", pers_ms["gss"],
         cuda_ms(lambda: _persistent_plain(
             nclaims, pst, psz, width=IMG, height=IMG, ct=CT, xlim=(-2.0, 1.0),
             ylim=(-1.5, 1.5), block_h=TILE, block_w=TILE, gw=IMG // TILE,
             device=dev), **once),
         mb_bytes + 4 * (P + 2 * pst.size), MANDEL_OPS_PER_ITER * sum_counts)
+    rows[-1].update(ms_fac2=pers_ms["fac2"], ms_ss=pers_ms["ss"],
+                    schedule_bound_ms=sched_bound)
+
+    spin_ops = SPIN_OPS_PER_PAIR * pairs["pairs"] + SPIN_OPS_K_PAIR * pairs["k"]
+    spin_bytes = 24 * N_POINTS + 4 * N_IMAGES * IMG_W * IMG_W
     row("spin_image", "src/repro_torch/csrc/spin_image.cu",
         "src/repro/kernels/spin_image/kernel.py:31",
         cuda_ms(lambda: spin_images(points, normals, N_IMAGES, img_width=IMG_W,
@@ -1103,8 +1180,11 @@ def main() -> int:
         cuda_ms(lambda: spin_images_oracle(
             points, normals, N_IMAGES, img_width=IMG_W, bin_size=BIN,
             support_angle=SUPPORT, point_chunk=4096), **once),
-        24 * N_POINTS + 4 * N_IMAGES * IMG_W * IMG_W,
-        SPIN_OPS_PER_PAIR * N_IMAGES * N_POINTS)
+        spin_bytes, spin_ops)
+    all_pairs = bound(spin_bytes, (SPIN_OPS_PER_PAIR + SPIN_OPS_K_PAIR) * pairs["pairs"])[0]
+    rows[-1].update(bound_all_pairs_ms=all_pairs)
+    print(f"  spin_image bound of every pair at {SPIN_OPS_PER_PAIR + SPIN_OPS_K_PAIR} "
+          f"operations: {all_pairs!r} ms")
 
     # f32 products in full f32 on both sides (TF32 off, PyTorch's default)
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -1,28 +1,44 @@
 // Mandelbrot escape counts of z <- z^4 + c (the paper's Algorithm 2): the
-// static grid and the persistent self-scheduled grid, sharing one escape
-// function.
+// static grid and the persistent self-scheduled grid, sharing one
+// iteration.
 //
 // Replaces: src/repro/kernels/mandelbrot/kernel.py, `_mandelbrot_kernel`
 // (with `escape_counts_tile`), and src/repro/kernels/mandelbrot/
 // persistent.py, `_persistent_kernel`.
 //
-// Bound: f32 operations.  Each counted iteration is 16 f32 operations
-// (15 arithmetic, one compare) and the only traffic is one int32 written per
-// pixel, so the least time is 16 * sum(counts) over the f32 rate without
-// FMA.  The TPU kernel runs every pixel for the full CT under a mask; here a
-// thread stops once its pixel escapes (count and z are frozen from then on,
-// so the result is unchanged) and only a warp's slowest pixel sets its time.
+// Bound: f32 operations.  An iteration needs 14 f32 operations (13
+// arithmetic, one compare: |z|^2's two products are the next iteration's
+// zr*zr and zi*zi) and the only traffic is one int32 written per pixel, so
+// the least time is 14 * sum(counts) over the f32 rate without FMA.  Under a
+// schedule it is the busiest worker's: 14 times its tiles' summed counts
+// over one SM's share of that rate.  The TPU kernel runs every pixel for the
+// full CT under a mask; here a pixel stops once it escapes (its count is
+// fixed from then on, so the result is unchanged) and a warp's slowest
+// pixel sets its time.
 //
-// Design: `escape_count` is the one device function both kernels call, in
-// one translation unit built with one set of flags, so the persistent image
+// Design: `z4c_step` is the one iteration both kernels run, in one
+// translation unit built with one set of flags, so the persistent image
 // equals the static one exactly.  The static kernel gives each thread one
-// pixel of a 32x8 block.  The persistent kernel launches W CTAs; CTA w walks
-// its own claim table (variable-sized chunks of the row-major tile space)
-// and its 1024 threads stride over each tile's pixels.  With one CTA per SM
-// (W = the SM count) 1024 threads give each scheduler 8 warps to hide the
-// latency of the dependent f32 chain; 256 threads left it 2 and ran 4x
-// slower than the static grid on an H100.  The claims partition the tiles,
-// so the CTAs' writes are disjoint.
+// pixel of a 32x8 block and tests for an escape after every iteration.
+// The persistent kernel launches W CTAs of 1024 threads (one per SM at W =
+// the SM count); CTA w walks its own claim table (variable-sized chunks of
+// the row-major tile space), and the claims partition the tiles, so the
+// CTAs' writes are disjoint.  On an H100 its old body (the static kernel's
+// loop, warps over rows of 32 pixels) ran at about 20 instructions
+// per 16-operation iteration; its heaviest gss worker was at ~79 % of one
+// SM's f32 rate, and workers of tiles where rows of 32 pixels diverge ran
+// up to 1.5x (ss) slower per modeled iteration.  So the body
+//   - tests for an escape once every kUnroll iterations
+//     (`escape_count_unrolled`): the loop's control and the test are paid
+//     once per run, and |z|^2's products are shared with the next
+//     iteration;
+//   - gives each warp a compact kPatchH x kPatchW patch of its tile: a
+//     patch crosses the set's boundary less often than a row of 32, so
+//     fewer warps wait on one slow pixel.
+// One pixel per thread at a time stays: two chains per thread (vertical
+// pixel pairs, or a chain refilled as soon as its pixel is done) measured
+// slower than the old body on the same card
+// (tests/test_torch_mandelbrot_bodies.py).
 //
 // Numeric traps handled here:
 //   1. FMA contraction: built with -fmad=false, so z*z - w*w and the
@@ -41,22 +57,25 @@ struct MandelGeom {
     float xmin, dx, ymin, dy;
 };
 
+// One iteration z <- z^4 + c; returns |z|^2 after it.
+__device__ __forceinline__ float z4c_step(float& zr, float& zi, float cr, float ci) {
+    const float zr2 = zr * zr - zi * zi;   // z^2
+    const float zi2 = (2.0f * zr) * zi;
+    const float zr4 = zr2 * zr2 - zi2 * zi2;  // z^4 = (z^2)^2
+    const float zi4 = (2.0f * zr2) * zi2;
+    zr = zr4 + cr;
+    zi = zi4 + ci;
+    return zr * zr + zi * zi;
+}
+
 __device__ __forceinline__ int escape_count(int row, int col, const MandelGeom& g) {
     const float cr = g.xmin + static_cast<float>(col) * g.dx;
     const float ci = g.ymin + static_cast<float>(row) * g.dy;
     float zr = 0.0f, zi = 0.0f;
     int cnt = 0;
     for (int it = 0; it < g.ct; ++it) {
-        const float zr2 = zr * zr - zi * zi;   // z^2
-        const float zi2 = (2.0f * zr) * zi;
-        const float zr4 = zr2 * zr2 - zi2 * zi2;  // z^4 = (z^2)^2
-        const float zi4 = (2.0f * zr2) * zi2;
-        const float nzr = zr4 + cr;
-        const float nzi = zi4 + ci;
-        const float mag2 = nzr * nzr + nzi * nzi;
+        const float mag2 = z4c_step(zr, zi, cr, ci);
         ++cnt;
-        zr = nzr;
-        zi = nzi;
         if (!(mag2 < 4.0f)) break;  // escaped (or NaN): frozen from here on
     }
     return cnt;
@@ -70,25 +89,71 @@ __global__ void mandelbrot_static_kernel(int* out, MandelGeom g) {
     }
 }
 
-__global__ void mandelbrot_persistent_kernel(int* out, const int* nclaims,
-                                             const int* starts, const int* sizes,
-                                             int C, int gw, int block_h, int block_w,
-                                             MandelGeom g) {
+constexpr int kUnroll = 16;  // persistent body: iterations run between escape tests
+constexpr int kPatchH = 4;  // persistent body: a warp's pixels, a kPatchH x kPatchW patch
+constexpr int kPatchW = 32 / kPatchH;
+
+// escape_count's value, testing for an escape once every K iterations.  A
+// run of K starts only while K more iterations are allowed; the first of
+// its K |z|^2 that is not < 4 gives the count (the iterations after it are
+// never read), and the last < K iterations run one by one as in
+// escape_count.  Unrolled, |z|^2's two products are the next iteration's
+// zr*zr and zi*zi (the same roundings), so an iteration costs 13 f32
+// operations and a compare.
+template <int K>
+__device__ __forceinline__ int escape_count_unrolled(int row, int col, const MandelGeom& g) {
+    const float cr = g.xmin + static_cast<float>(col) * g.dx;
+    const float ci = g.ymin + static_cast<float>(row) * g.dy;
+    float zr = 0.0f, zi = 0.0f;
+    int cnt = 0;
+    float mag2[K];
+    while (cnt + K <= g.ct) {
+        bool inside = true;
+#pragma unroll
+        for (int i = 0; i < K; ++i) {
+            mag2[i] = z4c_step(zr, zi, cr, ci);
+            inside &= mag2[i] < 4.0f;
+        }
+        if (!inside) {
+#pragma unroll
+            for (int i = 0; i < K; ++i) {
+                if (!(mag2[i] < 4.0f)) return cnt + i + 1;
+            }
+        }
+        cnt += K;
+    }
+    while (cnt < g.ct) {
+        ++cnt;
+        if (!(z4c_step(zr, zi, cr, ci) < 4.0f)) break;
+    }
+    return cnt;
+}
+
+__global__ void __launch_bounds__(1024)
+mandelbrot_persistent_kernel(int* out, const int* nclaims, const int* starts,
+                             const int* sizes, int C, int gw, int block_h, int block_w,
+                             MandelGeom g) {
     const int w = blockIdx.x;
-    const int tile_px = block_h * block_w;
     const int n = nclaims[w];
+    // the tile padded to whole patches, patches row-major: warp-step p / 32
+    // takes patch p / 32, lane p % 32 its pixel (lane / kPatchW, lane % kPatchW)
+    const int patch_cols = (block_w + kPatchW - 1) / kPatchW;
+    const int padded = (block_h + kPatchH - 1) / kPatchH * patch_cols * 32;
     for (int c = 0; c < n; ++c) {
         const int st = starts[w * C + c];
         const int sz = sizes[w * C + c];
-        for (int t = 0; t < sz; ++t) {
-            const int tile = st + t;
+        for (int tile = st; tile < st + sz; ++tile) {
             const int ti = tile / gw;
             const int tj = tile - ti * gw;
-            for (int p = threadIdx.x; p < tile_px; p += blockDim.x) {
-                const int row = ti * block_h + p / block_w;
-                const int col = tj * block_w + p % block_w;
-                if (row < g.height && col < g.width) {
-                    out[static_cast<size_t>(row) * g.width + col] = escape_count(row, col, g);
+            for (int p = threadIdx.x; p < padded; p += blockDim.x) {
+                const int patch = p / 32, lane = p % 32;
+                const int r = patch / patch_cols * kPatchH + lane / kPatchW;
+                const int x = patch % patch_cols * kPatchW + lane % kPatchW;
+                const int row = ti * block_h + r;
+                const int col = tj * block_w + x;
+                if (r < block_h && x < block_w && row < g.height && col < g.width) {
+                    out[static_cast<size_t>(row) * g.width + col] =
+                        escape_count_unrolled<kUnroll>(row, col, g);
                 }
             }
         }

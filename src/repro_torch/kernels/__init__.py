@@ -4,7 +4,8 @@ Port of ``repro.kernels``, all four of its kernel packages:
 
   mandelbrot      -- paper app 2: escape-time z<-z^4+c (variable-cost loop),
                      static grid and persistent self-scheduled grid
-  spin_image      -- paper app 1: PSIA spin images, shared-memory histogram
+  spin_image      -- paper app 1: PSIA spin images, an exact cheap gate
+                     before the full sequence, atomic histogram
   flash_attention -- fused attention (causal/SWA/GQA), static grid and
                      persistent self-scheduled grid over varlen batches
   ssd_scan        -- the Mamba2 SSD chunked scan (state carried across

@@ -8,8 +8,10 @@ loop runs in the protocol kernel, producing per-worker claim tables
 (variable-sized chunks of the linearized tile space); each CTA then walks
 its own table and writes its tiles into the shared counts image.
 
-Pixel math is the one ``escape_count`` device function the static kernel
-calls too, so the two paths are exactly equal.
+Pixel math is the one ``z4c_step`` iteration the static kernel runs too,
+so the two paths are exactly equal.  The persistent body tests for an
+escape once every 16 iterations and gives each warp a 4x8 patch of its
+tile (``csrc/mandelbrot.cu``).
 """
 from __future__ import annotations
 

@@ -8,12 +8,17 @@ into FMAs), persistent == static exactly, spin images exactly equal.  The
 without a card.  The JAX package is imported only by the parity tests
 (``jk`` fixture), so the ``cuda`` tests also run where jax is absent.
 """
+import ctypes
+import shutil
+import subprocess
+
 import numpy as np
 import pytest
 import torch
 
 import repro_torch.kernels as tk
 from repro_torch.kernels.mandelbrot.persistent import mandelbrot_tile_costs
+from repro_torch.kernels.mandelbrot.ref import geometry
 
 from _torch_support import cloud, require_card
 
@@ -74,6 +79,125 @@ def test_mandelbrot_persistent_rejects_foreign_schedule():
     with pytest.raises(ValueError, match="schedule is for"):
         tk.mandelbrot_persistent(64, ct=5, block_h=16, block_w=16, workers=2,
                                  schedule=sched, device="cpu")
+
+
+#: csrc/mandelbrot.cu, the persistent kernel: threads per CTA and the patch
+#: of a tile that one warp-step takes
+THREADS, PATCH_H, PATCH_W = 1024, 4, 8
+
+
+def _persistent_pixels(nclaims, starts, sizes, *, gw, bh, bw, width, height):
+    """Mirror of the persistent kernel's pixel assignment: one row
+    (worker, thread, step, row, col) per pixel the kernel writes.  Tiles in
+    claim-table order; in a tile padded to whole patches, index p goes to
+    thread p % THREADS, patch p // 32 (row-major), lane p % 32 at
+    (lane // PATCH_W, lane % PATCH_W) of its patch."""
+    patch_cols = -(-bw // PATCH_W)
+    p = np.arange(-(-bh // PATCH_H) * patch_cols * 32)
+    patch, lane = p // 32, p % 32
+    r = patch // patch_cols * PATCH_H + lane // PATCH_W
+    x = patch % patch_cols * PATCH_W + lane % PATCH_W
+    thread = p % THREADS
+    per_thread = np.bincount(thread, minlength=THREADS)
+    out = []
+    for w in range(len(nclaims)):
+        done = np.zeros(THREADS, np.int64)  # steps each thread has taken
+        for st, sz in zip(starts[w, :nclaims[w]], sizes[w, :nclaims[w]]):
+            for tile in range(st, st + sz):
+                ti, tj = divmod(tile, gw)
+                row, col = ti * bh + r, tj * bw + x
+                ok = (r < bh) & (x < bw) & (row < height) & (col < width)
+                step = done[thread] + p // THREADS
+                out.append(np.stack([np.full(ok.sum(), w), thread[ok], step[ok],
+                                     row[ok], col[ok]], 1))
+                done += per_thread
+    return np.concatenate(out) if out else np.zeros((0, 5), np.int64)
+
+
+@pytest.mark.parametrize("bh,bw,workers", [(64, 64, 5), (32, 32, 7), (48, 40, 5),
+                                           (128, 128, 5), (128, 128, 64)])
+def test_persistent_body_covers_each_pixel_once(bh, bw, workers):
+    """Every pixel of a 1000x700 image (partial edge tiles) is written once,
+    by one thread of the worker whose table holds its tile, and nothing
+    outside the image; each warp-step stays inside one patch.  With 64
+    workers and 48 tiles some tables are empty."""
+    from repro_torch.device import claim_schedule
+
+    width, height = 1000, 700
+    gw, gh = -(-width // bw), -(-height // bh)
+    sched = claim_schedule("gss", gw * gh, workers, device="cpu")
+    nclaims, starts, sizes = sched.worker_lists()
+    px = _persistent_pixels(nclaims, starts, sizes, gw=gw, bh=bh, bw=bw,
+                            width=width, height=height)
+    hits = np.zeros((height, width), np.int64)
+    np.add.at(hits, (px[:, 3], px[:, 4]), 1)
+    assert (hits == 1).all()
+    tile_owner = np.repeat(sched.workers, sched.sizes)[np.argsort(
+        np.concatenate([np.arange(a, a + b) for a, b in zip(sched.starts, sched.sizes)]))]
+    assert np.array_equal(px[:, 0], tile_owner[px[:, 3] // bh * gw + px[:, 4] // bw])
+    assert set(np.unique(px[:, 0])) == {w for w in range(workers) if nclaims[w]}
+    if workers > gw * gh:
+        assert (nclaims == 0).any()
+    key = px[:, 0] * 10**9 + (px[:, 1] // 32) * 10**6 + px[:, 2]  # worker, warp, step
+    order = np.argsort(key, kind="stable")
+    k, rows, cols = key[order], px[order, 3], px[order, 4]
+    starts_ = np.flatnonzero(np.r_[True, k[1:] != k[:-1]])
+    assert (np.maximum.reduceat(rows, starts_) - np.minimum.reduceat(rows, starts_) < PATCH_H).all()
+    assert (np.maximum.reduceat(cols, starts_) - np.minimum.reduceat(cols, starts_) < PATCH_W).all()
+    one = px[:, 0] * THREADS + px[:, 1]  # no thread takes two pixels in one step
+    for t in np.unique(one)[::97]:
+        assert np.array_equal(np.sort(px[one == t, 2]), np.unique(px[one == t, 2]))
+
+
+def _escape_counts_unrolled(rows, cols, *, ct, width, height, K=16):
+    """Mirror of the persistent kernel's ``escape_count_unrolled<K>``: runs
+    of K iterations while K more are allowed, the first |z|^2 >= 4 of a run
+    giving the count, then the last < K iterations one by one."""
+    xmin, dx, ymin, dy = geometry(width, height, (-2.0, 1.0), (-1.5, 1.5))
+    cr = xmin + cols.to(torch.float32) * dx
+    ci = ymin + rows.to(torch.float32) * dy
+    zr, zi = torch.zeros_like(cr), torch.zeros_like(cr)
+    cnt = torch.zeros(cr.shape, dtype=torch.int32)
+    done = torch.zeros(cr.shape, dtype=torch.bool)
+
+    def step(zr, zi):
+        zr2, zi2 = zr * zr - zi * zi, 2.0 * zr * zi
+        nzr, nzi = zr2 * zr2 - zi2 * zi2 + cr, 2.0 * zr2 * zi2 + ci
+        return nzr, nzi, nzr * nzr + nzi * nzi
+
+    while True:
+        run = ~done & (cnt + K <= ct)
+        if not run.any():
+            break
+        first = torch.full(cr.shape, K, dtype=torch.int32)
+        for i in range(K):
+            zr, zi, mag2 = step(zr, zi)
+            first = torch.where((first == K) & ~(mag2 < 4.0), i, first)
+        escaped = run & (first < K)
+        cnt = torch.where(escaped, cnt + first + 1, torch.where(run, cnt + K, cnt))
+        done |= escaped
+    while True:
+        tail = ~done & (cnt < ct)
+        if not tail.any():
+            break
+        nzr, nzi, mag2 = step(zr, zi)
+        zr, zi = torch.where(tail, nzr, zr), torch.where(tail, nzi, zi)
+        cnt = torch.where(tail, cnt + 1, cnt)
+        done |= tail & ~(mag2 < 4.0)
+    return cnt
+
+
+@pytest.mark.parametrize("ct", [0, 1, 15, 16, 17, 40, 95])
+def test_unrolled_escape_count_equals_plain(ct):
+    """The persistent body's count (runs of 16, then single steps) equals
+    the plain escape count, with CT below, at and around a run's end."""
+    width, height = 64, 48
+    rows = torch.arange(height, dtype=torch.int32)[:, None].expand(height, width)
+    cols = torch.arange(width, dtype=torch.int32)[None, :].expand(height, width)
+    got = _escape_counts_unrolled(rows, cols, ct=ct, width=width, height=height)
+    want = tk.mandelbrot(width, height, ct=ct, device="cpu")
+    assert torch.equal(got, want)
+    assert ct < 2 or len(torch.unique(want)) > 2
 
 
 def test_mandelbrot_tile_costs_match_reference(jk):
@@ -182,31 +306,106 @@ def test_mandelbrot_kernel_matches_plain(width, height, ct, bh, bw):
     assert torch.equal(k, tk.mandelbrot_ref(width, height, ct=ct))
 
 
+PERSISTENT_CARD = [  # (technique, width, height, ct, block_h, block_w, workers)
+    *[(t, 200, 120, 150, 32, 32, 5) for t in ("gss", "fac2", "tss", "ss")],
+    ("gss", 1000, 700, 90, 48, 40, 7),    # ragged tiles, partial edge tiles
+    ("ss", 1000, 700, 90, 48, 40, 132),
+    ("fac2", 200, 120, 150, 128, 128, 5),  # more workers than tiles
+    ("gss", 96, 80, 0, 32, 32, 3),         # CT = 0: every count is 0
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("technique", ["gss", "fac2", "tss", "ss"])
-def test_mandelbrot_persistent_kernel_equals_static(technique):
+@pytest.mark.parametrize("technique,width,height,ct,bh,bw,workers", PERSISTENT_CARD)
+def test_mandelbrot_persistent_kernel_equals_static(technique, width, height, ct,
+                                                    bh, bw, workers):
     require_card()
-    ref = tk.mandelbrot(200, 120, ct=150)
+    ref = tk.mandelbrot(width, height, ct=ct)
     out, sched = tk.mandelbrot_persistent(
-        200, 120, ct=150, block_h=32, block_w=32, technique=technique, workers=5,
-        costs=mandelbrot_tile_costs(ref, 32, 32))
+        width, height, ct=ct, block_h=bh, block_w=bw, technique=technique,
+        workers=workers, costs=mandelbrot_tile_costs(ref, bh, bw))
     assert torch.equal(out, ref)
     plain, _ = tk.mandelbrot_persistent(
-        200, 120, ct=150, block_h=32, block_w=32, workers=5, schedule=sched,
-        device="cpu")
+        width, height, ct=ct, block_h=bh, block_w=bw, workers=workers,
+        schedule=sched, device="cpu")
     assert torch.equal(out.cpu(), plain)
 
 
+SPIN_CARD = [*[(*g, False) for g in SPIN_GRID],  # ... and has_nan
+             (200_000, 1000, 5, 0.05, 2.0, False),  # 1000 images: a partial CTA
+             (4096, 300, 32, 0.5, 2.0, False),  # W/2 = 16: beta in [0.5, 16.5]
+             (4096, 300, 5, 0.25, 2.0, True)]
+
+
+def _card_cloud(n_points, has_nan):
+    """``cloud(n_points)`` on the card; with ``has_nan`` some coordinates
+    and normals are NaN or infinite, centers among them."""
+    pts, nrm = cloud(n_points)
+    if has_nan:
+        pts[::7, 1] = np.nan
+        pts[3::11, 0] = np.inf
+        pts[5::13, 2] = -np.inf
+        nrm[2::9, 2] = np.nan
+    return torch.from_numpy(pts).cuda(), torch.from_numpy(nrm).cuda()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_points,n_images,W,bin_size,angle", SPIN_GRID)
-def test_spin_image_kernel_matches_plain(n_points, n_images, W, bin_size, angle):
+@pytest.mark.parametrize("n_points,n_images,W,bin_size,angle,has_nan", SPIN_CARD)
+def test_spin_image_kernel_matches_plain(n_points, n_images, W, bin_size, angle,
+                                         has_nan):
     require_card()
-    pts, nrm = (torch.from_numpy(a).cuda() for a in cloud(n_points))
+    pts, nrm = _card_cloud(n_points, has_nan)
     k = tk.spin_images(pts, nrm, n_images, img_width=W, bin_size=bin_size,
                        support_angle=angle)
     p = tk.spin_images_oracle(pts, nrm, n_images, img_width=W,
-                              bin_size=bin_size, support_angle=angle)
-    assert torch.equal(k, p)
+                              bin_size=bin_size, support_angle=angle,
+                              point_chunk=8192)
+    assert int(p.sum()) > 0 and torch.equal(k, p)
+
+
+@pytest.fixture(scope="module")
+def narrowed_gate(tmp_path_factory):
+    """The spin-image library with its beta window cut by one bin at the
+    low edge (bin row k = W-1 never passes the gate)."""
+    require_card()
+    from repro_torch.kernels import _build
+
+    old = "beta >= gate.beta_lo &&"
+    src = (_build.CSRC / "spin_image.cu").read_text()
+    assert src.count(old) == 1
+    d = tmp_path_factory.mktemp("narrowed_gate")
+    for h in _build.CSRC.glob("*.cuh"):
+        shutil.copy(h, d)
+    (d / "spin_image.cu").write_text(
+        src.replace(old, "beta >= gate.beta_lo + bin_size &&"))
+    lib = d / "spin_image.so"
+    run = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib),
+                          str(d / "spin_image.cu")], capture_output=True, text=True)
+    assert run.returncode == 0, run.stdout + run.stderr
+    return lib
+
+
+@pytest.mark.cuda
+def test_spin_kernel_fails_a_narrowed_gate(narrowed_gate, monkeypatch):
+    """At bin 0.05 on 200,000 points x 1,000 images the sound kernel equals
+    the plain version and the same kernel with a gate one bin too narrow
+    does not."""
+    from repro_torch.kernels import _build
+
+    pts, nrm = _card_cloud(200_000, False)
+    args = dict(img_width=5, bin_size=0.05, support_angle=2.0)
+    plain = tk.spin_images_oracle(pts, nrm, 1000, point_chunk=8192, **args)
+    sound = tk.spin_images(pts, nrm, 1000, **args)
+    monkeypatch.setattr(_build, "library", lambda name: ctypes.CDLL(str(narrowed_gate)))
+    _build.function.cache_clear()
+    try:
+        bad = tk.spin_images(pts, nrm, 1000, **args)
+    finally:
+        monkeypatch.undo()
+        _build.function.cache_clear()
+    assert torch.equal(sound, plain)
+    assert not torch.equal(bad, plain)
+    assert int(bad[:, -1].sum()) < int(plain[:, -1].sum())
 
 
 @pytest.mark.cuda
