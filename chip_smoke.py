@@ -13,7 +13,11 @@ protocol and applications through the port's public entry points:
      tiles of a 4096x4096 Mandelbrot image (CT 2000) with the tiles'
      escape-iteration costs, plus the GSS boundary case (N=513, P=3) drained
      both by the protocol kernel and by host claims through the window's
-     fetch-add kernel;
+     fetch-add kernel (each of the path's protocol launches is then timed
+     alone, from fresh counters: device time under ``torch.profiler``,
+     CUDA-event time per wrapper call and host time per ``claim_schedule``
+     call, beside the chain floor of a grant and the latency bound it sets;
+     ``repro_torch.device.protocol_timing``);
   3. the static Mandelbrot kernel at 4096x4096, CT 2000;
   4. the persistent Mandelbrot kernel over the gss, fac2 and ss schedules
      (then, timed, each worker's busy time alone against its modeled
@@ -281,6 +285,19 @@ def ptxas_report(log: str) -> dict:
         elif name is not None and ("spill" in line or "registers" in line):
             report[name].append(line.replace("ptxas info    : ", ""))
     return {n: "; ".join(v) for n, v in report.items()}
+
+
+def protocol_sass() -> None:
+    """Phase 6: the protocol library's ptxas registers, spills and shared
+    memory, by instance (R = the clocks a lane keeps in registers; 0: in
+    shared memory)."""
+    from repro_torch.kernels import _build
+
+    for n, info in sorted(ptxas_report(_build.BUILD_LOGS.get("protocol", "")).items()):
+        inst = re.search(r"protocol_kernelILi(\d+)E", n)
+        name = f"protocol_kernel<{inst.group(1)}>" if inst else (
+            "chain_floor_kernel" if "chain_floor" in n else n)
+        print(f"ptxas {name}: {info}")
 
 
 def attention_sass() -> None:
@@ -944,7 +961,9 @@ def main() -> int:
     from repro_torch.core.chunk_calculus import max_steps_bound, plan
     from repro_torch.device import claim_schedule, host_spec, slab_to_numpy
     from repro_torch.device.persistent import (
-        _claim_loop_cuda, _claim_loop_plain, cost_prefix_sum)
+        _claim_loop_plain, cost_prefix_sum)
+    from repro_torch.device.protocol_timing import (
+        chain_floor, main_path_cases, protocol_times)
     from repro_torch.device.window import fetch_add_slab
     from repro_torch.kernels import (
         _build, mandelbrot, mandelbrot_persistent, mandelbrot_ref, spin_images,
@@ -965,7 +984,8 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s (set-up, nvcc "
           f"{' '.join(_build.NVCC_FLAGS)})")
     for name, log in _build.BUILD_LOGS.items():
-        if name not in ("flash_attention", "ssd_scan"):  # phases 7, 8 print theirs by name
+        # phases 6, 7, 8 print theirs by name
+        if name not in ("protocol", "flash_attention", "ssd_scan"):
             for fn, info in ptxas_report(log).items():
                 print(f"  ptxas {name} {fn}: {info}")
 
@@ -1110,23 +1130,59 @@ def main() -> int:
         cuda_ms(lambda: fetch_add_slab(wslab, 0, 1)),
         host_ms(lambda: fetch_add_slab(cslab, 0, 1)), 12, 1, "host CPU")
 
-    # protocol: the gss loop of phase 2 (the kernel and the slab's reset)
+    # protocol: every launch of the main path (phase 2's five drains and the
+    # gss (513, 3) one, then the persistent kernels' gss, fac2 and ss tables),
+    # each from fresh counters, beside the latency bound: its granted steps
+    # times the chain floor, the least time an exact earliest-free walk
+    # spends on a grant (one warp-wide min, then the owner's compare and
+    # select; the owner's new clock is formed beside the min)
+    protocol_sass()
+    floor = chain_floor()
+    print(f"chain floor: {floor['us_per_step']!r} us/step "
+          f"({floor['cycles_per_step']!r} cycles/step over {floor['steps']} steps)")
+    proto = {(r["technique"], r["N"], r["P"]): r
+             for r in protocol_times(main_path_cases(N, P), {N: costs})}
+    for (t, n_, p_), r in proto.items():
+        lat = r["steps"] * floor["us_per_step"] / 1e3
+        r["latency_bound_ms"] = lat
+        print(f"time protocol {t} N={n_} P={p_}: {r['steps']} steps, device "
+              f"{r['device_ms']!r} ms ({r['device_us_per_step']!r} us/step; "
+              f"{r['device_ms'] / lat!r}x the latency bound {lat!r} ms); "
+              f"{r['event_ms']!r} ms per wrapper call back to back; "
+              f"{r['call_ms']!r} ms per claim_schedule call")
+    main_launches = ([(t, N, P) for t in TECHNIQUES] + [("gss", 513, 3)]
+                     + [(t, N, P) for t in schedules])
+    check(len(main_launches) == launches["protocol"], "the main path's protocol launches")
+    main_sum = {k: sum(proto[c][k] for c in main_launches)
+                for k in ("device_ms", "event_ms", "call_ms", "latency_bound_ms")}
+    print(f"  protocol on the main path: {len(main_launches)} launches, device "
+          f"{main_sum['device_ms']!r} ms, per wrapper call {main_sum['event_ms']!r} ms, "
+          f"per claim_schedule call {main_sum['call_ms']!r} ms; latency bound "
+          f"{main_sum['latency_bound_ms']!r} ms")
+    gss = proto[("gss", N, P)]
     spec = host_spec("gss", N, P)
     S = int(max_steps_bound(spec))
     kw = dict(technique="gss", N=N, P=P, chunk=1, max_chunk=None, S=S,
               i_slot=0, lp_slot=1, i_bits=(2 * S).bit_length())
     csum = cost_prefix_sum(costs, N)
-    csum_dev = torch.from_numpy(csum).to(dev)
-    pslab = torch.zeros(2, dtype=torch.int32, device=dev)
-    proto_ms = cuda_ms(lambda: _claim_loop_cuda(pslab.zero_(), csum_dev, **kw))
     n_steps = schedules["gss"].n_steps
+    check(gss["steps"] == n_steps, "timed gss launch == the main path's")
     proto_plain = host_ms(lambda: _claim_loop_plain(
         torch.zeros(2, dtype=torch.int32), torch.from_numpy(csum), **kw))
+    # ms: CUDA-event time per wrapper call, as the other rows; device_ms beside
     row("protocol", "src/repro_torch/csrc/protocol.cu",
-        "src/repro/device/persistent.py:42", proto_ms, proto_plain,
+        "src/repro/device/persistent.py:42", gss["event_ms"], proto_plain,
         8 + 4 * (N + 1) + 16 * n_steps + 8 * P, n_steps * (P + 40), "host CPU")
-    print(f"  protocol is latency-bound: {n_steps} dependent steps of two "
-          f"global atomics each ({proto_ms * 1e3 / n_steps!r} us/step)")
+    rows[-1].update(
+        device_ms=gss["device_ms"], latency_bound_ms=gss["latency_bound_ms"],
+        chain_floor_us_per_step=floor["us_per_step"],
+        main_path_device_ms=main_sum["device_ms"], main_path_ms=main_sum["event_ms"],
+        main_path_call_ms=main_sum["call_ms"],
+        by_launch=[{k: proto[c][k] for k in ("technique", "N", "P", "steps", "device_ms",
+                                             "event_ms", "call_ms", "latency_bound_ms")}
+                   for c in main_launches])
+    print(f"  protocol's larger bound is latency: {n_steps} grants x the chain floor = "
+          f"{gss['latency_bound_ms']!r} ms (the bytes / operations bound above says nothing)")
 
     # The plain versions of the applications take seconds where the kernels
     # take milliseconds; each already ran once in its check above, so one

@@ -4,20 +4,48 @@
 // `chunk_size_device` and `_gss_geometric_df` of src/repro/device/
 // chunk_calculus.py traced in).
 //
-// Bound: latency.  The loop is S dependent steps; each is two global atomics
-// on the window slab (fetch-add i, then fetch-add lp with the K'_i computed
-// from the i just fetched), an argmin over P clocks and one schedule row.
-// Bytes and operations are negligible: the time is S times the round trip of
-// two dependent L2 atomics plus a warp reduction.
+// Computes, from the window slab's counters (i0, lp0): the schedule row
+// (i, worker, start, size) of every claim the loop grants, rows past the last
+// grant at -1; each worker's clock (the f32 sum of its chunks' costs, in
+// grant order) and claim count; and the slab's i and lp advanced exactly as
+// the reference's step-by-step loop leaves them.
 //
-// Design: one CTA of one warp.  Lane 0 performs the two fetch-adds with
-// atomicAdd on the slab in global memory -- updated in place, the
-// counterpart of the reference's input_output_aliases={0: 0} -- and computes
-// K'_i with the __device__ closed form.  The warp then finds the worker with
-// the least virtual clock (ties to the lowest index, as jnp.argmin) with
-// shuffles over the clocks held in shared memory; lane 0 charges the chunk's
-// cost to it and writes the row.  One warp keeps every step free of
-// __syncthreads; nothing leaves the SM except the atomics and the row.
+// Bound: latency.  Bytes and operations are negligible.  In one launch the
+// kernel is the window's only claimant, so step s fetches i = i0 + s and
+// lp = lp0 + sum_{t<s} K'_{i0+t}: the counters' arithmetic (the GSS
+// double-float power included) does not depend on the walk and runs in
+// parallel.  Only the earliest-free-worker walk is a chain: a grant needs the
+// argmin of the clocks that the grant before it left.  The least such chain
+// is one warp-wide min (redux.sync) and the owner's compare and select a
+// grant, the owner's new clock formed beside the min;
+// `repro_protocol_chain_floor` below measures it.
+//
+// Design, one CTA of kThreads threads:
+//   1. Prologue, the whole CTA, kThreads steps at a time.  Each thread takes
+//      K'_i of its step from the closed form; a block-wide exclusive scan,
+//      carried from block to block, gives the starts; the steps whose start
+//      is below N are granted (a prefix).  A granted step's size and cost
+//      (the f32 difference of two prefix-sum entries) are taken here, the cost
+//      into a scratch array, and its row (i, -1, start, size) is written.  The
+//      blocks stop at the first one that reaches N.
+//   2. The walk, warp 0, clocks in registers.  Lane l holds the clocks of
+//      workers l*R .. l*R+R-1 (R = ceil(P/32)), as order-preserving u32
+//      keys, and the least (key, slot) of its own.  A grant goes to the
+//      lowest lane holding the warp's least key -- that lane's workers come
+//      first, so ties go to the lowest index, as jnp.argmin -- found by one
+//      redux.sync min and a ballot.  Meanwhile every lane adds the grant's
+//      cost to its least clock (__fadd_rn); the owner keeps the sum and
+//      rescans its R keys.  The costs come 32 at a time in one coalesced
+//      load, a group ahead, and reach the lanes by shuffle; the worker id is
+//      a store off the chain.  Above kMaxRegClocks * 32 workers the clocks
+//      live in shared memory and the whole warp rescans the owner's block.
+//   3. The window is written once: one fetch-add of the grants on i and one
+//      of their chunk sizes on lp (atomicAdd on the slab in device memory,
+//      the counterpart of the reference's input_output_aliases={0: 0}).  Their
+//      old values must be the i0 and lp0 read at the start, or the launch
+//      traps: another claimant touched the window during the launch.  The
+//      protocol's two RMWs a grant are made on the kernel's on-chip image of
+//      the slab, as the TPU kernel makes them on its aliased copy.
 //
 // Numeric trap 4 (clocks): the cost prefix sum arrives from the host, built
 // with the reference's own numpy expression (float64 costs cumulated into a
@@ -31,93 +59,333 @@
 namespace {
 
 constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kThreads = 512;      // prologue steps per block
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxRegClocks = 8;   // clocks a lane keeps in registers
+constexpr unsigned kNoWorker = 0xffffffffu;  // the key of an empty slot
 
-__global__ void protocol_kernel(int* slab, const float* csum, int* sched,
-                                float* clocks_out, int* counts_out,
-                                ChunkParams c, int S, int i_slot, int lp_slot) {
-    extern __shared__ float smem[];
-    float* clocks = smem;                                 // (P,)
-    int* counts = reinterpret_cast<int*>(smem + c.P);     // (P,)
-    const int lane = threadIdx.x;
-    const int N = c.N, P = c.P;
+// An f32 clock as a u32 key whose unsigned order is the float order: a
+// negative float's bits flipped, a positive one's sign bit set.  -0.0 would
+// sort below +0.0, but a clock is never -0.0: it starts at +0.0, and
+// __fadd_rn gives -0.0 only for (-0.0) + (-0.0).
+__device__ __forceinline__ unsigned clock_key(float v) {
+    const unsigned u = __float_as_uint(v);
+    return u ^ (static_cast<unsigned>(static_cast<int>(u) >> 31) | 0x80000000u);
+}
 
+// The clock a key stands for (clock_key's inverse).
+__device__ __forceinline__ float key_clock(unsigned k) {
+    return __uint_as_float(k ^ (static_cast<unsigned>(static_cast<int>(~k) >> 31) | 0x80000000u));
+}
+
+// The lowest lane whose key is the warp's least, and that key (the walk in
+// shared memory).
+__device__ __forceinline__ int argmin_lane(unsigned key, unsigned& least) {
+    least = __reduce_min_sync(kFullMask, key);
+    return __ffs(__ballot_sync(kFullMask, key == least)) - 1;
+}
+
+__device__ __forceinline__ long long warp_inclusive_scan(long long x, int lane) {
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+        const long long y = __shfl_up_sync(kFullMask, x, off);
+        if (lane >= off) x += y;
+    }
+    return x;
+}
+
+// The least of a lane's R keys and its slot, by a tree (ties to the lower
+// slot).
+template <int R>
+__device__ __forceinline__ void least_of(const unsigned (&key)[R], unsigned& least,
+                                         int& slot) {
+    unsigned k[R];
+    int at[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+        k[r] = key[r];
+        at[r] = r;
+    }
+#pragma unroll
+    for (int w = 1; w < R; w *= 2) {
+#pragma unroll
+        for (int r = 0; r + w < R; r += 2 * w) {
+            if (k[r + w] < k[r]) {
+                k[r] = k[r + w];
+                at[r] = at[r + w];
+            }
+        }
+    }
+    least = k[0];
+    slot = at[0];
+}
+
+// The walk with R clocks a lane in registers, kept as their keys.  For each
+// grant every lane adds the cost to its least clock while one redux.sync min
+// and a ballot find the owner; the owner keeps that sum (selected, not
+// branched: every lane runs the same instructions) and rescans its R keys by
+// a tree.  So the chain of a grant is the redux, the ballot and the rescan.
+// The step loop is unrolled by 32 (a group), so each cost's shuffle has a
+// fixed source lane and the loop's control leaves the chain.
+template <int R>
+__device__ __forceinline__ void walk_registers(int* sched, const float* cost,
+                                               float* clocks_out, int* counts_out,
+                                               int P, int n, int lane) {
+    unsigned key[R];
+    int cnt[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+        key[r] = lane * R + r < P ? clock_key(0.0f) : kNoWorker;
+        cnt[r] = 0;
+    }
+    const unsigned below = (1u << lane) - 1u;  // the lanes below this one
+    unsigned least;  // the lane's least key, at `slot`
+    int slot;
+    least_of<R>(key, least, slot);
+    float group = lane < n ? cost[lane] : 0.0f;
+    for (int g = 0; g < n; g += 32) {
+        const float next = g + 32 + lane < n ? cost[g + 32 + lane] : 0.0f;
+        const int m = min(32, n - g);
+#pragma unroll 32
+        for (int t = 0; t < m; ++t) {
+            const float x = __shfl_sync(kFullMask, group, t);
+            const unsigned grown = clock_key(__fadd_rn(key_clock(least), x));
+            const unsigned lo = __reduce_min_sync(kFullMask, least);
+            const unsigned tied = __ballot_sync(kFullMask, least == lo);
+            const bool mine = least == lo && (tied & below) == 0;
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+                const bool hit = mine && r == slot;
+                key[r] = hit ? grown : key[r];
+                cnt[r] += hit ? 1 : 0;
+            }
+            if (mine) sched[4 * (g + t) + 1] = lane * R + slot;
+            least_of<R>(key, least, slot);
+        }
+        group = next;
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+        const int j = lane * R + r;
+        if (j < P) {
+            clocks_out[j] = key_clock(key[r]);
+            counts_out[j] = cnt[r];
+        }
+    }
+}
+
+// The walk with the clocks in shared memory: lane l owns the block of
+// workers l*R .. l*R+R-1 and caches its least; after a grant the whole warp
+// rescans the owner's block, C slots a lane.
+__device__ __forceinline__ void walk_shared(float* clk, int* cnt, int* sched,
+                                            const float* cost, float* clocks_out,
+                                            int* counts_out, int P, int n, int lane) {
+    const int R = (P + 31) / 32;
+    const int C = (R + 31) / 32;
     for (int j = lane; j < P; j += 32) {
-        clocks[j] = 0.0f;
-        counts[j] = 0;
+        clk[j] = 0.0f;
+        cnt[j] = 0;
     }
-    for (int j = lane; j < 4 * S; j += 32) sched[j] = -1;
     __syncwarp();
-
-    for (int s = 0; s < S; ++s) {
-        // state: 0 drained, 1 granted, 2 claimed past N (not granted)
-        int state = 0, i = 0, k = 0, start = 0;
-        if (lane == 0) {
-            // fast-path read of lp: an L2 load (atomics live in L2, so an
-            // L1-cached copy could be stale)
-            if (__ldcg(slab + lp_slot) < N) {
-                i = atomicAdd(slab + i_slot, 1);           // Step 1
-                k = chunk_size_device(i, c);               // Step 2 (local)
-                start = atomicAdd(slab + lp_slot, k);      // Step 3
-                state = start < N ? 1 : 2;
+    unsigned least = lane * R < P ? clock_key(0.0f) : kNoWorker;
+    int slot = 0;
+    float group = lane < n ? cost[lane] : 0.0f;
+    for (int g = 0; g < n; g += 32) {
+        const float next = g + 32 + lane < n ? cost[g + 32 + lane] : 0.0f;
+        const int m = min(32, n - g);
+        for (int t = 0; t < m; ++t) {
+            const float x = __shfl_sync(kFullMask, group, t);
+            unsigned lo;
+            const int owner = argmin_lane(least, lo);
+            const int base = owner * R;
+            const int w = base + __shfl_sync(kFullMask, slot, owner);
+            if (lane == owner) {
+                clk[w] = __fadd_rn(clk[w], x);
+                cnt[w] += 1;
+                sched[4 * (g + t) + 1] = w;
+            }
+            __syncwarp();
+            unsigned mine = kNoWorker;
+            int at = 0;
+            for (int q = 0; q < C; ++q) {
+                const int r = lane * C + q;
+                if (r < R && base + r < P) {
+                    const unsigned k = clock_key(clk[base + r]);
+                    if (k < mine) {
+                        mine = k;
+                        at = r;
+                    }
+                }
+            }
+            const int holder = argmin_lane(mine, lo);
+            at = __shfl_sync(kFullMask, at, holder);
+            if (lane == owner) {
+                least = lo;
+                slot = at;
             }
         }
-        state = __shfl_sync(kFullMask, state, 0);
-        if (state == 0) break;  // lp only grows: every later step is empty
-        if (state == 2) continue;
-
-        // argmin over the clocks, ties to the lowest index
-        float best = 0.0f;
-        int best_idx = -1;
-        for (int j = lane; j < P; j += 32) {
-            const float v = clocks[j];
-            if (best_idx < 0 || v < best) {
-                best = v;
-                best_idx = j;
-            }
-        }
-        for (int off = 16; off > 0; off >>= 1) {
-            const float ov = __shfl_down_sync(kFullMask, best, off);
-            const int oi = __shfl_down_sync(kFullMask, best_idx, off);
-            if (oi >= 0 && (best_idx < 0 || ov < best || (ov == best && oi < best_idx))) {
-                best = ov;
-                best_idx = oi;
-            }
-        }
-        if (lane == 0) {
-            const int size = min(k, N - start);
-            const float cost = __fsub_rn(csum[start + size], csum[start]);
-            clocks[best_idx] = __fadd_rn(clocks[best_idx], cost);
-            counts[best_idx] += 1;
-            int* row = sched + 4 * s;
-            row[0] = i;
-            row[1] = best_idx;
-            row[2] = start;
-            row[3] = size;
-        }
-        __syncwarp();
+        group = next;
     }
     __syncwarp();
     for (int j = lane; j < P; j += 32) {
-        clocks_out[j] = clocks[j];
-        counts_out[j] = counts[j];
+        clocks_out[j] = clk[j];
+        counts_out[j] = cnt[j];
     }
+}
+
+// R: clocks a lane keeps in registers; 0: in dynamic shared memory.
+template <int R>
+__global__ void __launch_bounds__(kThreads)
+protocol_kernel(int* slab, const float* csum, int* sched, float* cost,
+                float* clocks_out, int* counts_out, ChunkParams c, int S,
+                int i_slot, int lp_slot) {
+    extern __shared__ float dyn[];         // R == 0: clocks (P,), counts (P,)
+    __shared__ long long scan[kWarps + 1];  // each warp's offset; the block's sum
+    __shared__ int window[2];              // i0, lp0 as read at the start
+    __shared__ long long lp_end;           // lp after the last grant
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const long long N = c.N;
+
+    if (tid == 0) {
+        // L2 loads: the slab's home is device memory
+        window[0] = __ldcg(slab + i_slot);
+        window[1] = __ldcg(slab + lp_slot);
+        lp_end = window[1];
+    }
+    __syncthreads();
+    const int i0 = window[0];
+    const long long lp0 = window[1];
+
+    // -- 1. prologue: K', starts, sizes and costs of every granted step --
+    int n = 0;             // steps granted
+    long long before = 0;  // the sum of K' over the blocks before
+    for (int base = 0; base < S; base += kThreads) {
+        const int s = base + tid;
+        const long long k = s < S ? chunk_size_device(i0 + s, c) : 0;
+        const long long incl = warp_inclusive_scan(k, lane);
+        if (lane == 31) scan[warp] = incl;
+        __syncthreads();
+        if (warp == 0) {
+            const long long w = lane < kWarps ? scan[lane] : 0;
+            const long long wi = warp_inclusive_scan(w, lane);
+            if (lane < kWarps) scan[lane] = wi - w;
+            if (lane == kWarps - 1) scan[kWarps] = wi;
+        }
+        __syncthreads();
+        const long long start = lp0 + before + scan[warp] + incl - k;
+        const bool granted = s < S && start < N;
+        if (granted) {
+            const int st = static_cast<int>(start);
+            const int size = static_cast<int>(min(k, N - start));
+            cost[s] = __fsub_rn(csum[st + size], csum[st]);
+            reinterpret_cast<int4*>(sched)[s] = make_int4(i0 + s, -1, st, size);
+            if (s + 1 == S || start + k >= N) lp_end = start + k;
+        }
+        before += scan[kWarps];
+        const int got = __syncthreads_count(granted);
+        n += got;
+        if (got < kThreads) break;
+    }
+
+    if (warp != 0) {
+        // -- 3. beside the walk: the rows past the last grant, the window --
+        const int4 none = make_int4(-1, -1, -1, -1);
+        for (int s = n + tid - 32; s < S; s += kThreads - 32)
+            reinterpret_cast<int4*>(sched)[s] = none;
+        if (tid == 32) {
+            const int2 old = make_int2(atomicAdd(slab + i_slot, n), atomicAdd(slab + lp_slot, static_cast<int>(lp_end - lp0)));
+            if (old.x != i0 || old.y != static_cast<int>(lp0)) __trap();
+        }
+        return;
+    }
+
+    // -- 2. the earliest-free walk --
+    if constexpr (R > 0) {
+        walk_registers<R>(sched, cost, clocks_out, counts_out, c.P, n, lane);
+    } else {
+        walk_shared(dyn, reinterpret_cast<int*>(dyn + c.P), sched, cost,
+                    clocks_out, counts_out, c.P, n, lane);
+    }
+}
+
+template <int R>
+cudaError_t launch(int* slab, const float* csum, int* sched, float* cost,
+                   float* clocks, int* counts, const ChunkParams& c, int S,
+                   int i_slot, int lp_slot, cudaStream_t stream) {
+    size_t smem = 0;
+    if (R == 0) {
+        smem = static_cast<size_t>(c.P) * (sizeof(float) + sizeof(int));
+        const cudaError_t err = cudaFuncSetAttribute(
+            protocol_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem));
+        if (err != cudaSuccess) return err;
+    }
+    protocol_kernel<R><<<1, kThreads, smem, stream>>>(
+        slab, csum, sched, cost, clocks, counts, c, S, i_slot, lp_slot);
+    return cudaGetLastError();
+}
+
+// The least chain of a grant that an exact earliest-free walk makes: one
+// warp-wide min (redux.sync), then the owner's compare and select, then the
+// next min.  The value the owner takes is formed beside the min, as the walk
+// forms its sum, so no add is on the chain.  Lane l starts at key l and takes
+// key + 32 whenever it holds the least, so the lanes take turns; the loop is
+// unrolled by 32 as the walk's is.  `cycles` gets the loop's clock64 span.
+__global__ void chain_floor_kernel(int steps, unsigned* keys, long long* cycles) {
+    unsigned key = threadIdx.x;
+    const long long t0 = clock64();
+    for (int s = 0; s < steps; s += 32) {
+#pragma unroll
+        for (int t = 0; t < 32; ++t) {
+            const unsigned grown = key + 32u;
+            key = key == __reduce_min_sync(kFullMask, key) ? grown : key;
+        }
+    }
+    const long long t1 = clock64();
+    keys[threadIdx.x] = key;
+    if (threadIdx.x == 0) *cycles = t1 - t0;
 }
 
 }  // namespace
 
 extern "C" int repro_protocol_launch(
-    int device, void* slab, void* csum, void* sched, void* clocks, void* counts,
-    int technique, int N, int P, int chunk, int max_chunk, int i_bits,
-    float q_hi, float q_lo, float n_hi, float n_lo, int K0, int Klast, int C,
-    int S, int i_slot, int lp_slot, void* stream) {
+    int device, void* slab, void* csum, void* sched, void* cost, void* clocks,
+    void* counts, int technique, int N, int P, int chunk, int max_chunk,
+    int i_bits, float q_hi, float q_lo, float n_hi, float n_lo, int K0,
+    int Klast, int C, int S, int i_slot, int lp_slot, void* stream) {
     const DeviceGuard guard(device);
     if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
-    ChunkParams c{technique, N, P, chunk, max_chunk, i_bits,
-                  q_hi, q_lo, n_hi, n_lo, K0, Klast, C};
-    const size_t smem = static_cast<size_t>(P) * (sizeof(float) + sizeof(int));
-    protocol_kernel<<<1, 32, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<int*>(slab), static_cast<const float*>(csum),
-        static_cast<int*>(sched), static_cast<float*>(clocks),
-        static_cast<int*>(counts), c, S, i_slot, lp_slot);
+    const ChunkParams c{technique, N, P, chunk, max_chunk, i_bits,
+                        q_hi, q_lo, n_hi, n_lo, K0, Klast, C};
+    auto* s = static_cast<int*>(slab);
+    auto* cs = static_cast<const float*>(csum);
+    auto* sc = static_cast<int*>(sched);
+    auto* co = static_cast<float*>(cost);
+    auto* cl = static_cast<float*>(clocks);
+    auto* cn = static_cast<int*>(counts);
+    auto st = static_cast<cudaStream_t>(stream);
+    cudaError_t err;
+    switch ((P + 31) / 32) {
+        case 1: err = launch<1>(s, cs, sc, co, cl, cn, c, S, i_slot, lp_slot, st); break;
+        case 2: err = launch<2>(s, cs, sc, co, cl, cn, c, S, i_slot, lp_slot, st); break;
+        case 3: err = launch<3>(s, cs, sc, co, cl, cn, c, S, i_slot, lp_slot, st); break;
+        case 4: err = launch<4>(s, cs, sc, co, cl, cn, c, S, i_slot, lp_slot, st); break;
+        case 5: err = launch<5>(s, cs, sc, co, cl, cn, c, S, i_slot, lp_slot, st); break;
+        case 6: err = launch<6>(s, cs, sc, co, cl, cn, c, S, i_slot, lp_slot, st); break;
+        case 7: err = launch<7>(s, cs, sc, co, cl, cn, c, S, i_slot, lp_slot, st); break;
+        case kMaxRegClocks: err = launch<kMaxRegClocks>(s, cs, sc, co, cl, cn, c, S, i_slot, lp_slot, st); break;
+        default: err = launch<0>(s, cs, sc, co, cl, cn, c, S, i_slot, lp_slot, st);
+    }
+    return static_cast<int>(err);
+}
+
+// `steps` must be a multiple of 32; `keys` gets each lane's last key (32 u32).
+extern "C" int repro_protocol_chain_floor(int device, int steps, void* keys,
+                                          void* cycles, void* stream) {
+    if (steps % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    const DeviceGuard guard(device);
+    if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
+    chain_floor_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+        steps, static_cast<unsigned*>(keys), static_cast<long long*>(cycles));
     return static_cast<int>(cudaGetLastError());
 }

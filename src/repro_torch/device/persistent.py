@@ -1,15 +1,23 @@
 """The protocol kernel: Step 1-3 of the paper, on the card.
 
 Port of ``repro.device.persistent``.  One launch of the CUDA protocol kernel
-(``csrc/protocol.cu``) owns the whole scheduling loop.  The window counters
-are the device window's int32 slab, updated in place, and the kernel
-repeats the paper's protocol until the loop drains:
+(``csrc/protocol.cu``) owns the whole scheduling loop over the device
+window's int32 slab and repeats the paper's protocol until the loop drains:
 
-  Step 1  fetch-add the step counter ``i``     (atomicAdd on the slab)
+  Step 1  fetch-add the step counter ``i``
   Step 2  K'_i from the on-device closed form  (``csrc/chunk_calculus.cuh``)
-  Step 3  fetch-add the loop pointer ``lp``    (atomicAdd on the slab)
+  Step 3  fetch-add the loop pointer ``lp``
   ...     truncate into [0, N), append (i, worker, start, size) to the
           schedule output.
+
+The two RMWs a step are the protocol's count (``DeviceSchedule.n_rmw``).
+The kernel makes them on an on-chip image of the slab, as the TPU kernel
+makes them on its aliased copy, and no longer as two L2 atomics a step: in
+one launch it is the window's only claimant, so i advances by one a step and
+the starts are a prefix sum of the closed-form chunk sizes.  It computes
+those for all steps in parallel and writes the slab back once, with one
+fetch-add on ``i`` and one on ``lp`` (atomicAdd on the slab in device memory,
+updated in place).
 
 Worker assignment: a fixed fleet of ``P`` workers is modeled by per-worker
 virtual clocks -- each claim goes to the worker with the minimum
@@ -18,11 +26,13 @@ advances by the chunk's cost (a prefix-sum lookup over the caller's
 per-iteration cost model).  This is "the next claim is taken by the
 earliest-free block", made deterministic; the persistent *compute* kernels
 (kernels/*/persistent.py) then execute the schedule with real parallel
-CTAs.
+CTAs.  This walk is the kernel's one sequential part: one warp, the clocks
+in its registers.
 
 ``claim_schedule`` launches the kernel for a CUDA slab and runs the plain
-version (``_claim_loop_plain``, the same loop in tensor code) for a CPU
-slab.  Chunk-sequence parity with the host ``plan()`` holds index for index.
+version (``_claim_loop_plain``, the reference's loop step by step in tensor
+code) for a CPU slab.  Chunk-sequence parity with the host ``plan()`` holds
+index for index.
 """
 from __future__ import annotations
 
@@ -71,7 +81,8 @@ class DeviceSchedule:
 
     @property
     def n_rmw(self) -> int:
-        """Protocol RMWs the kernel paid (two fetch-adds per step)."""
+        """The protocol's RMWs: two fetch-adds a step (made by the kernel on
+        its on-chip image of the slab)."""
         return 2 * self.n_steps
 
     def makespan(self) -> float:
@@ -117,9 +128,10 @@ def _claim_loop_plain(slab, csum, *, technique, N, P, chunk, max_chunk, S,
                       i_slot, lp_slot, i_bits):
     """The plain version of the protocol kernel, in tensor code on the CPU.
 
-    The same loop as ``csrc/protocol.cu``: the slab is updated in place;
-    K'_i comes from ``chunk_size_device`` (evaluated up front for the
-    S indices the loop can fetch, since ``i`` advances by one per step).
+    The reference's loop step by step, which ``csrc/protocol.cu`` computes
+    in parallel: the slab is updated in place; K'_i comes from
+    ``chunk_size_device`` (evaluated up front for the S indices the loop can
+    fetch, since ``i`` advances by one per step).
     """
     sched = torch.full((S, 4), -1, dtype=torch.int32)
     clocks = torch.zeros(P, dtype=torch.float32)
@@ -154,18 +166,20 @@ def _claim_loop_cuda(slab, csum, *, technique, N, P, chunk, max_chunk, S,
         raise ValueError(f"P={P} workers exceed the kernel's shared memory")
     dev = slab.device
     sched = torch.empty((S, 4), dtype=torch.int32, device=dev)
+    cost = torch.empty(S, dtype=torch.float32, device=dev)  # scratch: each step's cost
     clocks = torch.empty(P, dtype=torch.float32, device=dev)
     counts = torch.empty(P, dtype=torch.int32, device=dev)
     q_hi, q_lo, n_hi, n_lo = gss_constants(N, P)
     K0, Klast, _S, C = tss_constants(N, P, chunk)
     c_int, c_float, c_ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
     fn = _build.function(
-        "protocol", "repro_protocol_launch", c_int, c_ptr, c_ptr, c_ptr,
-        c_ptr, c_ptr, *([c_int] * 6), *([c_float] * 4), *([c_int] * 6), c_ptr)
+        "protocol", "repro_protocol_launch", c_int, *([c_ptr] * 6),
+        *([c_int] * 6), *([c_float] * 4), *([c_int] * 6), c_ptr)
     err = fn(dev.index, _build.ptr(slab), _build.ptr(csum), _build.ptr(sched),
-             _build.ptr(clocks), _build.ptr(counts), _TECHNIQUE_CODE[technique],
-             N, P, chunk, max_chunk or 0, i_bits, q_hi, q_lo, n_hi, n_lo,
-             K0, Klast, C, S, i_slot, lp_slot, _build.stream_of(slab))
+             _build.ptr(cost), _build.ptr(clocks), _build.ptr(counts),
+             _TECHNIQUE_CODE[technique], N, P, chunk, max_chunk or 0, i_bits,
+             q_hi, q_lo, n_hi, n_lo, K0, Klast, C, S, i_slot, lp_slot,
+             _build.stream_of(slab))
     _build.check(err, "protocol kernel")
     _build.LAUNCHES["protocol"] += 1
     return sched, clocks, counts

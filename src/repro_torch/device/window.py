@@ -11,7 +11,8 @@ Tiers (``capability_tier()``):
                 ``atomicAdd`` kernel (``csrc/window.cu``) on PyTorch's
                 current stream and returns the old value -- the counterpart
                 of the reference's jitted aliased slab update.  The protocol
-                kernel claims against the same slab with the same atomics.
+                kernel writes its claims back to the same slab with the same
+                atomics, one fetch-add on each counter a launch.
   ``interpret`` CPU: the plain version, a lock plus an index update on a CPU
                 slab, byte-exact with the kernel.
 

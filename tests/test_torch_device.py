@@ -233,6 +233,194 @@ def test_device_session_serial_executor_matches_reference(jdls):
 
 
 # ---------------------------------------------------------------------------
+# the plain protocol against the Pallas kernel: the cases the CUDA kernel's
+# design must handle (one worker, more workers than a warp's lanes, every
+# step a tie, resumed slabs)
+# ---------------------------------------------------------------------------
+
+def _costs(kind, N, seed=0):
+    """Per-iteration costs: None (uniform: every grant a tie among the
+    idle workers), "zeros" (a third of the iterations free) or "random"."""
+    if kind == "uniform":
+        return None
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(0.5, 3.0, N)
+    if kind == "zeros":
+        c[rng.random(N) < 1 / 3] = 0.0
+    return c
+
+
+@pytest.mark.parametrize("technique", tdev.DEVICE_SPEC_TECHNIQUES)
+@pytest.mark.parametrize("N,P", [(60, 1), (100, 33)])
+@pytest.mark.parametrize("kind", ["uniform", "zeros"])
+def test_plain_claim_schedule_matches_reference_wide(jdev, technique, N, P, kind):
+    costs = _costs(kind, N)
+    t = tdev.claim_schedule(technique, N, P, costs=costs, device="cpu")
+    _assert_schedules_equal(t, jdev.claim_schedule(technique, N, P, costs=costs))
+    assert int(t.sizes.sum()) == N and t.n_rmw == 2 * t.n_steps
+
+
+@pytest.mark.parametrize("technique", tdev.DEVICE_SPEC_TECHNIQUES)
+@pytest.mark.parametrize("i0,lp0", [(3, None), (5, 150), (9, 157)])
+def test_plain_claim_schedule_resumes_like_reference(jdev, technique, i0, lp0):
+    """Resumed slabs: mid-loop (lp0 = the start of claim i0), and lp0 >= N,
+    which grants nothing and leaves the slab as it was."""
+    import jax.numpy as jnp
+
+    N, P = 150, 4
+    if lp0 is None:
+        lp0 = int(jdev.claim_schedule(technique, N, P).starts[i0])
+    jslab = jnp.asarray([i0, lp0], jnp.int32)
+    j = jdev.claim_schedule(technique, N, P, slab=jslab)
+    t = tdev.claim_schedule(technique, N, P,
+                            slab=slab_from_numpy(np.asarray(jslab), "cpu"))
+    _assert_schedules_equal(t, j)
+    if lp0 >= N:
+        assert t.n_steps == 0 and slab_to_numpy(t.slab).tolist() == [i0, lp0]
+
+
+# ---------------------------------------------------------------------------
+# csrc/protocol.cu's algorithm, mirrored step for step in numpy, against the
+# plain loop: the parallel prologue (512-step blocks, exclusive scan with a
+# carry, the grants a prefix) and the one-warp walk (lane l holds workers
+# l*R .. l*R+R-1; a grant goes to the lowest lane holding the least key, its
+# least slot first: the owner's new least against the least of the other
+# lanes; above 8 clocks a lane one min over all lanes a grant, and the warp
+# rescans the owner's block)
+# ---------------------------------------------------------------------------
+
+_NO_WORKER = np.uint32(0xFFFFFFFF)
+_THREADS = 512    # the kernel's kThreads: prologue steps per block
+_REG_CLOCKS = 8   # its kMaxRegClocks: clocks a lane keeps in registers
+
+
+def _clock_key(v):
+    """The kernel's ``clock_key``: f32 -> u32 in the same order."""
+    u = np.asarray(v, np.float32).view(np.uint32)
+    return u ^ ((u.view(np.int32) >> 31).view(np.uint32) | np.uint32(0x80000000))
+
+
+def _kernel_model(slab, csum, *, technique, N, P, chunk, max_chunk, S, i_slot,
+                  lp_slot, i_bits):
+    slab, csum = slab.numpy(), csum.numpy()
+    i0, lp0 = int(slab[i_slot]), int(slab[lp_slot])
+    sched = np.full((S, 4), -1, np.int32)
+    cost = np.zeros(S, np.float32)
+    n, before, lp_end = 0, 0, lp0
+    for base in range(0, S, _THREADS):                      # 1. prologue
+        s = np.arange(base, base + _THREADS)
+        valid = s < S
+        k = tdev.chunk_size_device(technique, torch.from_numpy(i0 + np.where(valid, s, 0)),
+                                   N=N, P=P, chunk=chunk, max_chunk=max_chunk,
+                                   i_bits=i_bits).numpy().astype(np.int64)
+        k = np.where(valid, k, 0)
+        start = lp0 + before + np.cumsum(k) - k            # exclusive
+        granted = valid & (start < N)
+        for t in np.flatnonzero(granted):
+            st, size = int(start[t]), int(min(k[t], N - start[t]))
+            cost[s[t]] = csum[st + size] - csum[st]
+            sched[s[t]] = (i0 + s[t], -1, st, size)
+            if s[t] + 1 == S or start[t] + k[t] >= N:
+                lp_end = int(start[t] + k[t])
+        before += int(k.sum())
+        n += int(granted.sum())
+        if granted.sum() < _THREADS:
+            break
+    R = -(-P // 32)                                         # 2. the walk
+    real = np.arange(32 * R).reshape(32, R) < P
+    clk = np.zeros((32, R), np.float32)
+    cnt = np.zeros((32, R), np.int32)
+    least = np.where(real[:, 0], _clock_key(0.0), _NO_WORKER).astype(np.uint32)
+    slot = np.zeros(32, np.int64)
+    owner = int(np.flatnonzero(least == least.min())[0])
+    for s in range(n):
+        if R > _REG_CLOCKS:                                  # one redux a grant
+            owner = int(np.flatnonzero(least == least.min())[0])
+        other = np.where(np.arange(32) == owner, _NO_WORKER, least)
+        lo2 = other.min()                                   # the other lanes
+        first = int(np.flatnonzero(other == lo2)[0])
+        r = slot[owner]
+        clk[owner, r] = clk[owner, r] + cost[s]
+        cnt[owner, r] += 1
+        sched[s, 1] = owner * R + r
+        keys = np.where(real[owner], _clock_key(clk[owner]), _NO_WORKER)
+        if R <= _REG_CLOCKS:                                 # the owner alone
+            slot[owner] = int(np.argmin(keys))
+        else:                                               # the whole warp
+            C = -(-R // 32)
+            lanes = np.pad(keys, (0, 32 * C - R), constant_values=_NO_WORKER).reshape(32, C)
+            holder = int(np.flatnonzero(lanes.min(1) == lanes.min())[0])
+            slot[owner] = holder * C + int(np.argmin(lanes[holder]))
+        least[owner] = keys[slot[owner]]
+        if not (least[owner] < lo2 or (least[owner] == lo2 and owner < first)):
+            owner = first                                   # else the owner stays
+    new = slab.copy()
+    new[i_slot], new[lp_slot] = i0 + n, lp_end              # 3. the window
+    return sched, clk.reshape(-1)[:P], cnt.reshape(-1)[:P], new
+
+
+def _model_vs_plain(technique, N, P, costs=None, slab=(0, 0), chunk=1,
+                    max_chunk=None, max_steps=None):
+    spec = tdev.host_spec(technique, N, P, chunk, max_chunk)
+    S = int(max_steps or max_steps_bound(spec))
+    kw = dict(technique=technique, N=N, P=P, chunk=chunk, max_chunk=max_chunk,
+              S=S, i_slot=0, lp_slot=1, i_bits=(2 * S).bit_length())
+    csum = torch.from_numpy(tdev.persistent.cost_prefix_sum(costs, N))
+    start = torch.tensor(slab, dtype=torch.int32)
+    sched, clocks, counts, new = _kernel_model(start, csum, **kw)
+    plain_slab = start.clone()
+    p_sched, p_clocks, p_counts = tdev.persistent._claim_loop_plain(plain_slab, csum, **kw)
+    assert np.array_equal(sched, p_sched.numpy()), \
+        f"first row off: {int(np.argmax((sched != p_sched.numpy()).any(1)))}"
+    assert np.array_equal(clocks, p_clocks.numpy()) and np.array_equal(counts, p_counts.numpy())
+    assert np.array_equal(new, plain_slab.numpy())
+    return int((sched[:, 1] >= 0).sum())
+
+
+@pytest.mark.parametrize("technique", tdev.DEVICE_SPEC_TECHNIQUES)
+@pytest.mark.parametrize("P", [1, 3, 32, 33, 132, 300])
+@pytest.mark.parametrize("kind", ["uniform", "zeros", "random"])
+def test_kernel_model_equals_plain(technique, P, kind):
+    N = 1100  # ss and static at P=1 walk three prologue blocks
+    assert _model_vs_plain(technique, N, P, _costs(kind, N, seed=P)) > 0
+
+
+@pytest.mark.parametrize("technique,chunk,max_chunk,max_steps", [
+    ("gss", 2, 30, None), ("fsc", 7, None, None), ("tss", 3, None, None),
+    ("fac2", 2, 9, None), ("ss", 1, None, 37), ("gss", 1, None, 512)])
+def test_kernel_model_chunk_options(technique, chunk, max_chunk, max_steps):
+    """min/max chunk, and a step bound below the loop's (every step granted,
+    lp short of N: the last granted row sets lp)."""
+    _model_vs_plain(technique, 1500, 33, _costs("random", 1500), chunk=chunk,
+                    max_chunk=max_chunk, max_steps=max_steps)
+
+
+@pytest.mark.parametrize("technique", tdev.DEVICE_SPEC_TECHNIQUES)
+@pytest.mark.parametrize("slab", [(4, None), (17, 0), (5, 800), (9, 1000)])
+def test_kernel_model_resumed_slabs(technique, slab):
+    """Mid-loop, a step counter ahead of lp, lp0 == N and lp0 > N."""
+    N, P = 800, 33
+    i0, lp0 = slab
+    if lp0 is None:
+        sizes, starts = plan(tdev.host_spec(technique, N, P))
+        lp0 = int(starts[i0])
+    n = _model_vs_plain(technique, N, P, _costs("random", N), slab=(i0, lp0))
+    assert (n == 0) == (lp0 >= N)
+
+
+def test_clock_key_orders_like_floats():
+    """Strictly in float order; -0.0 just below +0.0, which a clock never
+    meets: clocks start at +0.0 and an f32 sum is -0.0 only for -0.0 + -0.0."""
+    v = np.array([-np.inf, -3.5, -1e-30, -0.0, 0.0, 1e-45, 1.0, 2.5e38, np.inf],
+                 np.float32)
+    assert (np.diff(_clock_key(v).astype(np.int64)) > 0).all()
+    zero = torch.zeros(1, dtype=torch.float32)
+    for c in (-0.0, 0.0, -1.5, 1.5):
+        assert not torch.signbit(zero + c).item() or c < 0
+        assert not torch.signbit(torch.tensor([c]) + torch.tensor([-c])).item()
+
+
+# ---------------------------------------------------------------------------
 # on the card: the CUDA kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -256,3 +444,138 @@ def test_window_kernel_matches_plain():
     for d in (1, 5, -3, 1000):
         assert kw.fetch_add("k", d) == cw.fetch_add("k", d)
     assert kw.read_many(["k"]) == cw.read_many(["k"])
+
+
+def _kernel_equals_plain(technique, N, P, costs=None, slab=None, **kw):
+    """claim_schedule on the card and on the CPU: every field and the slab."""
+    def run(device):
+        s = None if slab is None else torch.tensor(slab, dtype=torch.int32, device=device)
+        return tdev.claim_schedule(technique, N, P, costs=costs, slab=s, device=device, **kw)
+
+    k, p = run("cuda"), run("cpu")
+    for f in _FIELDS:
+        assert np.array_equal(getattr(k, f), getattr(p, f)), f
+    assert np.array_equal(slab_to_numpy(k.slab), slab_to_numpy(p.slab)), "slab"
+    return k
+
+
+CARD_P = [1, 3, 31, 32, 33, 132, 1000, 6144]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("technique", tdev.DEVICE_SPEC_TECHNIQUES)
+@pytest.mark.parametrize("P", CARD_P)
+@pytest.mark.parametrize("N", [1, 513, 4096, 20000])
+def test_protocol_kernel_equals_plain_across_shapes(technique, P, N):
+    """Random costs; ss at N = 20000 walks 40 prologue blocks; P above 256
+    keeps the clocks in shared memory."""
+    require_card()
+    _kernel_equals_plain(technique, N, P, _costs("random", N, seed=P))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("technique", tdev.DEVICE_SPEC_TECHNIQUES)
+@pytest.mark.parametrize("P", [1, 33, 132, 1000, 6144])
+@pytest.mark.parametrize("kind", ["uniform", "zeros"])
+def test_protocol_kernel_equals_plain_on_ties(technique, P, kind):
+    require_card()
+    _kernel_equals_plain(technique, 4096, P, _costs(kind, 4096))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("technique,chunk,max_chunk,max_steps", [
+    ("gss", 2, 30, None), ("fsc", 7, None, None), ("tss", 3, None, None),
+    ("fac2", 2, 9, None), ("static", 1, 5, None), ("ss", 1, None, 700),
+    ("gss", 1, None, 300)])
+@pytest.mark.parametrize("P", [3, 132, 1000])
+def test_protocol_kernel_chunk_options(technique, chunk, max_chunk, max_steps, P):
+    require_card()
+    _kernel_equals_plain(technique, 4096, P, _costs("random", 4096), chunk=chunk,
+                         max_chunk=max_chunk, max_steps=max_steps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("technique", tdev.DEVICE_SPEC_TECHNIQUES)
+@pytest.mark.parametrize("P", [1, 3, 132, 1000, 6144])
+@pytest.mark.parametrize("slab", [(40, None), (17, 0), (5, 4096), (9, 5000)])
+def test_protocol_kernel_resumed_slabs(technique, P, slab):
+    """Mid-loop, a step counter ahead of lp, lp0 == N and lp0 > N (nothing
+    granted, the slab unchanged); in a slab of capacity 5 at slots 3, 1."""
+    require_card()
+    N = 4096
+    i0, lp0 = slab
+    if lp0 is None:
+        sizes, starts = plan(tdev.host_spec(technique, N, P))
+        i0 = min(i0, len(starts) - 1)
+        lp0 = int(starts[i0])
+    full = [7, lp0, -2, i0, 11]
+    k = _kernel_equals_plain(technique, N, P, _costs("random", N), slab=full,
+                             i_slot=3, lp_slot=1)
+    assert (k.n_steps == 0) == (lp0 >= N)
+
+
+# one line of csrc/protocol.cu changed: ties to the highest lane, an inclusive
+# scan for the starts, the window's write-back dropped
+PROTOCOL_PLANTED = {
+    "ties_to_highest": (
+        "const unsigned below = (1u << lane) - 1u;",
+        "const unsigned below = ~((2u << lane) - 1u);"),
+    "inclusive_scan": (
+        "const long long start = lp0 + before + scan[warp] + incl - k;",
+        "const long long start = lp0 + before + scan[warp] + incl;"),
+    "no_write_back": (
+        "const int2 old = make_int2(atomicAdd(slab + i_slot, n), "
+        "atomicAdd(slab + lp_slot, static_cast<int>(lp_end - lp0)));",
+        "const int2 old = make_int2(i0, static_cast<int>(lp0));"),
+}
+
+
+@pytest.fixture(scope="module")
+def planted_protocol(tmp_path_factory):
+    """fault -> the protocol library built with it, all built at once."""
+    import shutil
+    import subprocess
+
+    from repro_torch.kernels import _build
+
+    require_card()
+    src = (_build.CSRC / "protocol.cu").read_text()
+    root = tmp_path_factory.mktemp("planted_protocol")
+    procs = {}
+    for fault, (old, new) in PROTOCOL_PLANTED.items():
+        assert src.count(old) == 1, fault
+        d = root / fault
+        d.mkdir()
+        for h in _build.CSRC.glob("*.cuh"):
+            shutil.copy(h, d)
+        (d / "protocol.cu").write_text(src.replace(old, new))
+        lib = d / "protocol.so"
+        procs[fault] = lib, subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib), str(d / "protocol.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for fault, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        assert proc.returncode == 0, f"{fault}: {log}"
+    return {fault: lib for fault, (lib, _) in procs.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", list(PROTOCOL_PLANTED))
+def test_protocol_kernel_fails_planted_faults(planted_protocol, fault, monkeypatch):
+    """The sound kernel equals the plain version over gss at N = 4096,
+    P = 132 with uniform costs (every grant a tie); each planted fault
+    does not."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    _kernel_equals_plain("gss", 4096, 132)
+    monkeypatch.setattr(_build, "library",
+                        lambda name: ctypes.CDLL(str(planted_protocol[fault])))
+    _build.function.cache_clear()
+    try:
+        with pytest.raises(AssertionError):
+            _kernel_equals_plain("gss", 4096, 132)
+    finally:
+        monkeypatch.undo()
+        _build.function.cache_clear()
