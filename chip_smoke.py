@@ -51,7 +51,18 @@ protocol and applications through the port's public entry points:
      SSD scan kernel alone at the model's geometry and at one serving
      chunk (B=1 x 512).  The SASS of the scan library must show
      tensor-core products (HGMMA) in the bf16 body's tiled kernels and in
-     nothing else.
+     nothing else;
+  9. the discrete-event simulator at the paper's PSIA size (288,000 images,
+     288 PEs of the 2:1 KNL/Xeon mix, each coordinator placement): 26 runs
+     through ``dls.loop(...).execute(executor="sim")`` -- one- and
+     two-sided over static, ss, gss, tss, fac2 and wf, hierarchical with 8
+     nodes and inner ss -- each held to a direct ``simulate`` (and the
+     one-sided unweighted ones to the host plan's chunk count), the same 26
+     through ``simulate_many`` in 4 spawned workers, and the fast path's
+     batch core with ``backend="torch"`` on the card against numpy (the
+     contended ss case, P=1024, and PSIA ss, both under FIFO polling).  No
+     kernel: the DES is a host algorithm, and its batch rounds are counted
+     in ``repro_torch.sim.fast.TORCH_ROUNDS``, zeroed before each run.
 
 The launch counts are zeroed just before each path (2-5, 6, 7, 8) and read
 just after.  Every kernel is then held against its plain PyTorch version
@@ -230,6 +241,10 @@ BF16_BAR, BF16_ATOL, BF16_RTOL = 3e-2, 5e-3, 1e-2
 # and the pallas forward's RMS distance to the f32 forward at most 1.1
 # times the xla backend's (PERF.md, PR 14: the sound readings)
 MODEL_BF16_BAR, MODEL_BF16_RMS = 5e-2, 1.1
+# the DES at the paper's PSIA size (core/sim.py:262, benchmarks/fig4_psia.py)
+DES_N, DES_P, DES_NODES, DES_WORKERS = 288_000, 288, 8, 4
+DES_TECHNIQUES = ("static", "ss", "gss", "tss", "fac2", "wf")
+DES_RTOL = 1e-9  # the torch batch core's contract against numpy
 
 
 def close(a, b, atol: float, rtol: float = 0.0):
@@ -941,6 +956,123 @@ def ssm_model_path(dev):
     return ssd_kernel_path(dev, cfg, bf16_launches)
 
 
+def same_result(a, b) -> bool:
+    """Two ``SimResult``s equal in every field, arrays bit for bit."""
+    import numpy as np
+
+    return (a.T_loop == b.T_loop and a.n_claims == b.n_claims and a.cov == b.cov
+            and np.array_equal(a.finish, b.finish)
+            and np.array_equal(a.per_pe_iters, b.per_pe_iters)
+            and a.master_serve_time == b.master_serve_time
+            and a.mean_claim_latency == b.mean_claim_latency
+            and (a.n_rmw_global, a.n_rmw_local) == (b.n_rmw_global, b.n_rmw_local)
+            and a.chunk_trace == b.chunk_trace)
+
+
+def des_path() -> None:
+    """Phase 9: the DES at the paper's PSIA size, through the facade.
+
+    26 runs of ``dls.loop(...).execute(executor="sim")`` (2:1 mix, each
+    coordinator; one- and two-sided over six techniques, hierarchical
+    with 8 nodes and inner SS), each held to a direct ``simulate``; the
+    same configs through ``simulate_many`` in 4 workers (CUDA is up, so
+    they must be spawned); then the fast path's batch core on the card
+    (``backend="torch"``) against numpy where rounds happen (FIFO polling).
+    """
+    import numpy as np
+    import torch
+
+    from repro_torch import dls
+    from repro_torch.core.chunk_calculus import LoopSpec, plan
+    from repro_torch.core.sim import (
+        PSIA_MEAN_COST, SimConfig, paper_cluster, psia_costs, simulate)
+    from repro_torch.core.weights import weights_from_speeds
+    from repro_torch.sim import fast, simulate_many
+
+    t_phase = time.perf_counter()
+    costs = psia_costs(DES_N, mean=PSIA_MEAN_COST)
+    configs, serial = [], []
+    for where in ("knl", "xeon"):
+        speeds, coord = paper_cluster("2:1", where)
+        weights = tuple(weights_from_speeds(speeds))
+        runs = [(rt, t) for rt in ("one_sided", "two_sided") for t in DES_TECHNIQUES]
+        for rt, t in runs + [("hierarchical", "gss")]:
+            loop_kw = dict(weights=weights) if t == "wf" else {}
+            sim_kw = dict(coordinator=coord)
+            if rt == "hierarchical":
+                loop_kw.update(nodes=DES_NODES, inner_technique="ss")
+                sim_kw.update(nodes=DES_NODES, inner_technique="ss")
+            t0 = time.perf_counter()
+            session = dls.loop(DES_N, t, P=DES_P, runtime=rt, **loop_kw)
+            rep = session.execute(None, executor="sim", costs=costs, speeds=speeds,
+                                  coordinator=coord)
+            wall = time.perf_counter() - t0
+            what = f"des {where} {rt} {t}"
+            check(int(rep.per_pe_iters.sum()) == DES_N, f"{what}: iterations sum to N")
+            cf = SimConfig(session.spec, speeds, costs, impl=rt, **sim_kw)
+            r = simulate(cf)
+            check(rep.wall_time == r.T_loop, f"{what}: report wall_time == direct T_loop")
+            check(rep.n_claims == r.n_claims and np.array_equal(rep.per_pe_iters, r.per_pe_iters),
+                  f"{what}: report claims and iterations == direct simulate")
+            if rt == "one_sided" and t != "wf":
+                # wf's chunk sizes depend on the claiming PE, so its count
+                # follows the grant order, not the unweighted host plan
+                n_plan = len(plan(session.spec)[0])
+                check(r.n_claims == n_plan, f"{what}: claims {r.n_claims} == host plan {n_plan}")
+            configs.append(cf)
+            serial.append(r)
+            print(f"{what}: T_loop {r.T_loop!r} s, claims {r.n_claims}, c.o.v. "
+                  f"{r.cov!r}, {wall!r} s wall")
+
+    check(torch.cuda.is_initialized(), "CUDA is up before simulate_many")
+    info = {}
+    t0 = time.perf_counter()
+    par = simulate_many(configs, workers=DES_WORKERS, info=info)
+    many_s = time.perf_counter() - t0
+    check(info["start_method"] == "spawn", f"simulate_many after CUDA: "
+          f"start method {info['start_method']!r} (must be spawn)")
+    check(all(same_result(a, b) for a, b in zip(par, serial)),
+          "simulate_many results == serial simulate")
+    print(f"des simulate_many: {len(configs)} configs, {DES_WORKERS} workers, start "
+          f"method {info['start_method']}, {many_s!r} s wall; == serial")
+
+    # the batch core on the card: rounds happen only under FIFO polling
+    contended = SimConfig(
+        LoopSpec("ss", N=200_000, P=1024),
+        np.random.default_rng(7).uniform(0.25, 1.0, size=1024),
+        np.full(200_000, 1e-5), impl="one_sided", lock_polling_random=False)
+    speeds, coord = paper_cluster("2:1", "knl")
+    psia_fifo = SimConfig(LoopSpec("ss", N=DES_N, P=DES_P), speeds, costs, impl="one_sided",
+                          coordinator=coord, lock_polling_random=False)
+    for name, cf in (("contended ss P=1024 N=200000", contended),
+                     ("psia ss fifo 2:1 knl", psia_fifo)):
+        walls = {"numpy": [], "torch": []}
+        out, rounds = {}, []
+        for backend in ("numpy", "torch", "torch", "numpy", "numpy", "torch"):
+            fast.reset_torch_rounds()
+            t0 = time.perf_counter()
+            r = simulate(cf, backend=backend,
+                         device="cuda" if backend == "torch" else None)
+            walls[backend].append(time.perf_counter() - t0)
+            out.setdefault(backend, r)
+            if backend == "torch":
+                rounds.append(fast.TORCH_ROUNDS["cuda"])
+                check(fast.TORCH_ROUNDS["cpu"] == 0, f"{name}: no torch round on the CPU")
+        rn, rt = out["numpy"], out["torch"]
+        check(min(rounds) > 0, f"{name}: the torch core ran on cuda ({rounds} rounds)")
+        rel = float(np.max(np.abs(rt.finish - rn.finish) / np.abs(rn.finish)))
+        check(rel <= DES_RTOL and abs(rt.T_loop - rn.T_loop) <= DES_RTOL * rn.T_loop,
+              f"{name}: torch core within {DES_RTOL} of numpy (finish rel {rel!r})")
+        check(rt.n_claims == rn.n_claims
+              and np.array_equal(rt.per_pe_iters, rn.per_pe_iters),
+              f"{name}: claims and per-PE iterations equal")
+        print(f"des core {name}: {rounds[0]} rounds on cuda per run; T_loop numpy "
+              f"{rn.T_loop!r} torch {rt.T_loop!r} (max finish rel {rel!r}); wall "
+              f"median of 3: numpy {statistics.median(walls['numpy'])!r} s, "
+              f"torch {statistics.median(walls['torch'])!r} s")
+    print(f"des phase: {time.perf_counter() - t_phase:.1f} s wall")
+
+
 def main() -> int:
     root = Path(__file__).resolve().parent
     if not (root / "src" / "repro_torch" / "csrc").is_dir():
@@ -1249,6 +1381,8 @@ def main() -> int:
     t_ssm = time.perf_counter()
     rows.append(ssm_model_path(dev))
     print(f"ssm phase: {time.perf_counter() - t_ssm:.1f} s wall")
+    # -- 9. the DES (no kernel: the fast path's batch core on the card) -----
+    des_path()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -1,10 +1,10 @@
 """Pluggable executors: how a session's claims actually get executed.
 
-Port of ``repro.dls.executors``: ``serial``, ``threads`` and ``device``.
-``processes`` and ``sim`` raise ``ValueError`` until their slices land
-(ROADMAP.md, "Modules to port", items 7 and 9).
+Port of ``repro.dls.executors``: ``serial``, ``threads``, ``sim`` and
+``device``.  ``processes`` raises ``ValueError`` until its slice lands
+(ROADMAP.md, "Modules to port", item 9).
 
-Three built-ins, all draining a ``DLSession`` to completion and returning a
+The built-ins, all draining a ``DLSession`` to completion and returning a
 ``SessionReport``:
 
   * ``serial``  -- round-robin claims on the calling thread.  Deterministic;
@@ -13,6 +13,9 @@ Three built-ins, all draining a ``DLSession`` to completion and returning a
     claim independently (the paper's protocol); two-sided runtimes run the
     non-dedicated master-worker protocol (master interleaves serving the
     request queue with its own chunks).
+  * ``sim``     -- the discrete-event simulator (``core/sim.py``): no real
+    execution; pass per-iteration ``costs`` and per-PE ``speeds``.  This is
+    how the paper's heterogeneous-cluster experiments run.
   * ``device``  -- the whole claim loop inside the CUDA protocol kernel
     against a ``DeviceWindow`` slab (``repro_torch.device``); requires
     ``runtime="device"``.
@@ -27,6 +30,8 @@ import threading
 import time
 from typing import Callable, Optional
 
+import numpy as np
+
 from repro_torch.core.scheduler import Claim, TwoSidedRuntime
 
 EXECUTORS = ("serial", "threads", "processes", "sim", "device")
@@ -35,7 +40,6 @@ EXECUTORS = ("serial", "threads", "processes", "sim", "device")
 _NOT_PORTED = {
     "processes": "the passive-target slice (ROADMAP.md, 'Modules to port', "
                  "item 9)",
-    "sim": "the DES slice (ROADMAP.md, 'Modules to port', item 7)",
 }
 
 WorkFn = Callable[[int, int], None]
@@ -53,6 +57,8 @@ def execute(session, work_fn: Optional[WorkFn], executor: str = "threads",
         raise ValueError(
             f"executor={executor!r} is not ported to repro_torch yet; it "
             f"lands with {_NOT_PORTED[executor]}")
+    if executor == "sim":
+        return _sim(session, **kw)
     if executor == "device":
         # the whole claim loop runs inside the CUDA protocol kernel
         # against the session's DeviceWindow slab (repro_torch.device)
@@ -191,3 +197,56 @@ def _threads_two_sided(session, work_fn: Optional[WorkFn],
     done.set()
     mt.join()
     return session.report("threads", wall_time=time.perf_counter() - t0)
+
+
+def _sim(session, costs=None, speeds=None, **sim_kw):
+    """Discrete-event simulation of this session's spec (no real execution).
+
+    ``costs``: per-iteration execution cost (length N, seconds at speed 1);
+    ``speeds``: per-PE relative speed (length P, defaults to homogeneous).
+    Wall time in the returned report is the *virtual* ``T_p^loop``.
+    Hierarchical sessions carry their ``nodes``/``inner_technique`` into the
+    DES and report per-level RMW counts.  ``collect_trace=True`` records
+    the DES's per-chunk events into ``report.chunk_times`` (virtual-clock
+    timestamps) so simulated runs are replayable like native ones.
+    ``perturbations=(...)`` forwards a ``repro_torch.sim.perturb`` scenario
+    (PE failure/churn, stragglers, speed drift) into the kernel.
+    """
+    from repro_torch.core.scheduler import HierarchicalRuntime
+    from repro_torch.core.sim import SimConfig, simulate
+    from .report import SessionReport
+
+    spec = session.spec
+    if costs is None:
+        raise ValueError("executor='sim' needs per-iteration costs=")
+    if speeds is None:
+        speeds = np.ones(spec.P)
+    if isinstance(session.runtime, HierarchicalRuntime):
+        sim_kw.setdefault("nodes", session.runtime.nodes)
+        sim_kw.setdefault("inner_technique", session.runtime.inner_technique)
+    r = simulate(SimConfig(spec, np.asarray(speeds), np.asarray(costs),
+                           impl=session.runtime_kind, **sim_kw))
+    chunk_times = None
+    if r.chunk_trace is not None:
+        # Canonical completion-ordering (two-sided master chunks are
+        # recorded at completion, out of grant order).
+        chunk_times = sorted(r.chunk_trace,
+                             key=lambda d: (d["t0"], d["t1"], d["pe"]))
+    return SessionReport(
+        technique=spec.technique,
+        N=spec.N,
+        P=spec.P,
+        runtime=session.runtime_kind,
+        executor="sim",
+        min_chunk=spec.min_chunk,
+        max_chunk=spec.max_chunk,
+        per_pe_claims=[[] for _ in range(spec.P)],  # DES logs counts, not claims
+        per_pe_iters=np.asarray(r.per_pe_iters, dtype=np.int64),
+        busy_time=np.asarray(r.finish, dtype=np.float64),
+        wall_time=float(r.T_loop),
+        n_claims=r.n_claims,
+        n_rmw_global=r.n_rmw_global,
+        n_rmw_local=r.n_rmw_local,
+        chunk_times=chunk_times,
+        auto_decision=session.auto_decision,
+    )

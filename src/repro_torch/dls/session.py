@@ -255,9 +255,11 @@ class DLSession:
 
         executor: "serial" (round-robin claims on the calling thread),
         "threads" (real concurrency; two-sided runs the non-dedicated
-        master-worker protocol), or "device" (the whole claim loop in the
-        protocol kernel; needs ``runtime="device"``).  "processes" and
-        "sim" are not ported yet and raise ``ValueError``.
+        master-worker protocol), "sim" (discrete-event simulation -- pass
+        ``costs=`` and ``speeds=`` instead of executing ``work_fn``), or
+        "device" (the whole claim loop in the protocol kernel; needs
+        ``runtime="device"``).  "processes" is not ported yet and raises
+        ``ValueError``.
         """
         from . import executors
 

@@ -139,8 +139,10 @@ def test_unported_backends_raise_and_auto_falls_back():
         make_window("kvstore")
     assert isinstance(make_window("auto"), ThreadWindow)
     s = tdls.loop(50, "ss", P=2)
-    for ex in ("processes", "sim"):
-        with pytest.raises(ValueError, match="not ported"):
-            s.execute(None, executor=ex)
+    with pytest.raises(ValueError, match="not ported"):
+        s.execute(None, executor="processes")
+    # executor="sim" is ported: without costs= it raises the reference's error
+    with pytest.raises(ValueError, match="needs per-iteration costs="):
+        s.execute(None, executor="sim")
     with pytest.raises(ValueError, match="not ported"):
         tdls.loop(50, "auto", P=2)
