@@ -47,7 +47,9 @@ protocol and applications through the port's public entry points:
      forward through the kernel and, swapped in by this script, through
      the scan's plain version, each held to the f32 forward; the serving
      engine (``Engine(backend="pallas")``) behind a ``ContinuousBatcher``
-     of 4 workers over 64 requests (gss, then the static split); and the
+     of 4 workers over 64 requests (gss, the static split, then
+     ``technique="auto"``: the replay sweep over the requests' ``max_new``,
+     held to a direct ``choose_technique``); and the
      SSD scan kernel alone at the model's geometry and at one serving
      chunk (B=1 x 512).  The SASS of the scan library must show
      tensor-core products (HGMMA) in the bf16 body's tiled kernels and in
@@ -62,11 +64,24 @@ protocol and applications through the port's public entry points:
      batch core with ``backend="torch"`` on the card against numpy (the
      contended ss case, P=1024, and PSIA ss, both under FIFO polling).  No
      kernel: the DES is a host algorithm, and its batch rounds are counted
-     in ``repro_torch.sim.fast.TORCH_ROUNDS``, zeroed before each run.
+     in ``repro_torch.sim.fast.TORCH_ROUNDS``, zeroed before each run;
+ 10. replay (``repro_torch.replay``): phase 2's gss and fac2 device reports
+     as traces (coverage, a byte-stable JSONL round trip through a
+     ``TraceStore``, equal to the same sessions drained on a CPU window;
+     calibrated percent error, gantt); ``dls.loop(N, "auto", trace=...)``
+     from the gss trace, whose best-ranked device technique is drained on
+     the card and drives persistent Mandelbrot (== phase 3's image), and
+     ``"auto"`` with ``runtime="device"``, which raises as in the
+     reference; gss and fac2 sim traces at the PSIA size with CUDA up,
+     their percent errors and full-N rankings (serial == 4 spawned
+     workers) against ``tests/fixtures/torch_replay_psia.json``, written
+     by the JAX package; and ``python -m repro_torch.replay`` record,
+     calibrate, predict and gantt in subprocesses.
 
-The launch counts are zeroed just before each path (2-5, 6, 7, 8) and read
-just after.  Every kernel is then held against its plain PyTorch version
-on the same inputs, every schedule against the host plan, the two model
+The launch counts are zeroed just before each path (2-5, 6, 7, 8, and
+10's run of the selected technique) and read just after.  Every kernel is
+then held against its plain PyTorch version on the same inputs, every
+schedule against the host plan, the two model
 backends against each other, and each kernel is timed with CUDA events
 beside its plain version, its bound and, for attention, PyTorch's
 ``scaled_dot_product_attention`` (a yardstick only; the port never calls
@@ -245,6 +260,9 @@ MODEL_BF16_BAR, MODEL_BF16_RMS = 5e-2, 1.1
 DES_N, DES_P, DES_NODES, DES_WORKERS = 288_000, 288, 8, 4
 DES_TECHNIQUES = ("static", "ss", "gss", "tss", "fac2", "wf")
 DES_RTOL = 1e-9  # the torch batch core's contract against numpy
+# phase 10: the PSIA rankings and percent errors, written by the JAX package
+# (tests/_torch_replay_cases.py)
+REPLAY_FIXTURE = "tests/fixtures/torch_replay_psia.json"
 
 
 def close(a, b, atol: float, rtol: float = 0.0):
@@ -790,6 +808,7 @@ def ssm_model_path(dev):
     from repro_torch.models import api
     from repro_torch.models import ssm as ssm_mod
     from repro_torch.models.params import cast
+    from repro_torch.replay import choose_technique
     from repro_torch.serve import ContinuousBatcher, Engine, Request
 
     cfg = get_config(SSM_MODEL)
@@ -920,7 +939,7 @@ def ssm_model_path(dev):
         lg, cache = api.decode_step(params, cfg, tok, cache, backend="pallas")
         tok = lg.argmax(-1).int()
     check(np.array_equal(step, np.stack(loop, 1)), "generate == stepwise prefill + greedy")
-    for static in (False, True):
+    for name in ("gss", "static", "auto"):
         reqs = [Request(rid=i, prompt=prompts[i], max_new=int(m))
                 for i, m in enumerate(max_new)]
         seen = []
@@ -936,12 +955,13 @@ def ssm_model_path(dev):
             return time.perf_counter() - t0
 
         _build.reset_launches()
-        batcher = ContinuousBatcher(n_workers=SERVE_WORKERS, technique="gss")
-        done = batcher.schedule(reqs, process, static=static)
+        batcher = ContinuousBatcher(n_workers=SERVE_WORKERS,
+                                    technique="auto" if name == "auto" else "gss",
+                                    auto_seed=0)
+        done = batcher.schedule(reqs, process, static=name == "static")
         rep = batcher.last_report
         sizes = [c.size for c in sorted((c for per in rep.per_pe_claims for c in per),
                                         key=lambda c: c.step)]
-        name = "static" if static else "gss"
         check(sorted(seen) == list(range(SERVE_N)), f"serve {name}: every request once")
         check(all(len(r.output) == r.max_new for r in reqs), f"serve {name}: all tokens")
         check(_build.LAUNCHES["ssd_scan"] == cfg.n_layers * rep.steps,
@@ -951,6 +971,19 @@ def ssm_model_path(dev):
               f"{rep.steps} chunks of {sizes}, "
               f"makespan {float(done.max())!r} s, mean latency {float(done.mean())!r} s, "
               f"ssd_scan launches {_build.LAUNCHES['ssd_scan']}")
+        if name == "auto":
+            # technique="auto": the replay sweep over the queue's max_new
+            d = rep.auto_decision
+            direct = choose_technique(N=SERVE_N, P=SERVE_WORKERS, costs=max_new, seed=0)
+            check(d is not None and d["source"] == "hints", "serve auto: decision from hints")
+            check(rep.technique == d["chosen"], "serve auto: the batcher ran the chosen technique")
+            check(d["n_evaluated"] == d["n_candidates"] == 13, "serve auto: all 13 evaluated")
+            check(d["chosen"] == direct["chosen"],
+                  f"serve auto: chose {d['chosen']!r}, a direct choose_technique "
+                  f"{direct['chosen']!r}")
+            print(f"serve auto: chose {d['chosen']} (top 3 "
+                  f"{[(r['technique'], r['T_loop']) for r in d['ranking'][:3]]}), sweep_s "
+                  f"{d['sweep_s']!r} s (direct {direct['sweep_s']!r} s)")
     del params, engine
     torch.cuda.empty_cache()
     return ssd_kernel_path(dev, cfg, bf16_launches)
@@ -1071,6 +1104,160 @@ def des_path() -> None:
               f"median of 3: numpy {statistics.median(walls['numpy'])!r} s, "
               f"torch {statistics.median(walls['torch'])!r} s")
     print(f"des phase: {time.perf_counter() - t_phase:.1f} s wall")
+
+
+def replay_path(root: Path, P: int, costs, sessions, image) -> None:
+    """Phase 10: ``repro_torch.replay`` over the card's traces and at the
+    paper's PSIA size.
+
+    (a) phase 2's gss and fac2 device reports as traces: coverage, the
+    JSONL round trip through a ``TraceStore``, equal to the same session
+    drained on a CPU ``DeviceWindow``; percent error, gantt. (b)
+    ``technique="auto"`` from the gss trace; the best-ranked technique the
+    device runtime takes is drained on the card and drives persistent
+    Mandelbrot, whose image must equal phase 3's. (c) gss and fac2 sim
+    traces at 288,000 x 288 with CUDA up: percent errors and full-N
+    rankings, serial and in 4 spawned workers, against the JAX package's
+    fixture. (d) the CLI in subprocesses.
+    """
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import dls
+    from repro_torch.core.chunk_calculus import plan
+    from repro_torch.core.sim import paper_cluster, psia_costs
+    from repro_torch.device import (
+        DEVICE_SPEC_TECHNIQUES, DeviceWindow, claim_schedule, host_spec)
+    from repro_torch.kernels import _build, mandelbrot_persistent
+    from repro_torch.replay import (
+        Trace, TraceStore, calibrate, choose_technique, gantt_ascii, predict,
+        save_svg)
+
+    t_phase = time.perf_counter()
+    N = len(costs)
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        traces = {}
+        # -- (a) the device traces -------------------------------------------
+        for t in ("gss", "fac2"):
+            rep = sessions[t][1]
+            tr = Trace.from_report(rep)
+            cov = np.zeros(N, np.int64)
+            for r in tr.records:
+                cov[r.start:r.stop] += 1
+            check(tr.iters_covered() == N and (cov == 1).all(),
+                  f"replay {t}: the device trace covers [0, N) once")
+            text = tr.to_jsonl()
+            path = TraceStore(tmp / "traces").save(tr)
+            again = TraceStore(tmp / "traces").load(path.name)
+            check(path.read_text() == text and again.to_jsonl() == text,
+                  f"replay {t}: JSONL round trip byte-stable")
+            s_cpu = dls.loop(N, t, P=P, runtime="device", window=DeviceWindow(device="cpu"))
+            cpu = Trace.from_report(dls.execute(s_cpu, None, executor="device", costs=costs))
+            check(cpu.to_jsonl() == text, f"replay {t}: trace == the CPU window's")
+            cal = calibrate(tr)
+            err = cal.percent_error()
+            check(np.isfinite(err), f"replay {t}: finite percent error")
+            chart = gantt_ascii(tr)
+            svg = save_svg(tr, tmp / f"{t}.svg")
+            svg_text = svg.read_text()
+            check(chart.count("\n") == P + 1 and svg_text.startswith("<svg")
+                  and svg_text.count("<rect") > len(tr.records),
+                  f"replay {t}: gantt renders one row per worker")
+            traces[t] = tr
+            print(f"replay {t}: device trace N={N} P={P}, {len(tr.records)} records, "
+                  f"{len(text)} bytes of JSONL == the CPU window's; calibrated replay "
+                  f"percent error {err!r} % (fitted speeds {cal.speeds.min()!r}.."
+                  f"{cal.speeds.max()!r}); gantt {chart.splitlines()[0]!r}, "
+                  f"svg {len(svg_text)} bytes")
+
+        # -- (b) technique="auto" from the device trace, run on the card ------
+        auto = dls.loop(N, "auto", P=P, trace=traces["gss"], auto_seed=0, auto_budget_s=None)
+        d = auto.auto_decision
+        check(d["source"] == "trace" and d["n_evaluated"] == 13 and auto.spec.technique
+              == d["chosen"], "replay auto: all 13 candidates ranked from the trace")
+        try:
+            dls.loop(N, "auto", P=P, runtime="device", costs=costs)
+            check(False, 'replay auto: runtime="device" must raise')
+        except ValueError as e:
+            print(f'replay auto runtime="device": ValueError {e} (as in the reference)')
+        best = next(r for r in d["ranking"] if r["technique"] in DEVICE_SPEC_TECHNIQUES)
+        tech = best["technique"]
+        _build.reset_launches()
+        s = dls.loop(N, tech, P=P, runtime="device")
+        rep = dls.execute(s, None, executor="device", costs=costs)
+        sched = claim_schedule(tech, N, P, costs=costs)
+        out = mandelbrot_persistent(IMG, ct=CT, block_h=TILE, block_w=TILE, workers=P,
+                                    schedule=sched)[0]
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        check(launches["protocol"] == 2 and launches["mandelbrot_persistent"] == 1,
+              f"replay auto: the protocol and persistent Mandelbrot ran ({launches})")
+        sizes, starts = plan(host_spec(tech, N, P))
+        _, _, st, sz = claims_in_grant_order(rep)
+        check(np.array_equal(st, starts) and np.array_equal(sz, sizes),
+              f"replay auto {tech}: schedule == host plan")
+        check(torch.equal(out, image), f"replay auto {tech}: persistent image == static")
+        print(f"replay auto: chose {d['chosen']} (sweep {d['sweep_s']!r} s); best device "
+              f"technique {tech} (rank {d['ranking'].index(best) + 1}): predicted T_loop "
+              f"{best['T_loop']!r}, the card's modeled makespan {float(rep.wall_time)!r}; "
+              f"{rep.steps} claims == host plan; persistent Mandelbrot == static; "
+              f"launches {launches}")
+
+        # -- (c) the paper's PSIA size on the host, with CUDA up -------------
+        check(torch.cuda.is_initialized(), "CUDA is up before the PSIA sweeps")
+        fixture = json.loads((root / REPLAY_FIXTURE).read_text())
+        speeds, coord = paper_cluster("2:1", "knl")
+        psia = psia_costs()
+        for t in ("gss", "fac2"):
+            t0 = time.perf_counter()
+            rep = dls.loop(DES_N, t, P=DES_P).execute(
+                None, executor="sim", costs=psia, speeds=speeds, seed=0,
+                coordinator=coord, collect_trace=True)
+            tr = Trace.from_report(rep, meta={"seed": 0})
+            res, walls = {}, {}
+            for workers in (0, DES_WORKERS):
+                t1 = time.perf_counter()
+                res[workers] = predict(tr, seed=0, budget_s=None, workers=workers)
+                walls[workers] = time.perf_counter() - t1
+            rows = {w: [[p.technique, repr(p.T_loop), p.steps] for p in r["ranking"]]
+                    for w, r in res.items()}
+            check(rows[0] == rows[DES_WORKERS], f"replay psia {t}: ranking serial == "
+                  f"{DES_WORKERS} workers")
+            want = fixture["traces"][t]
+            got = {"records": len(tr.records), "percent_error": repr(res[0]["percent_error"]),
+                   "ranking": rows[0]}
+            check(got == want, f"replay psia {t}: == {REPLAY_FIXTURE}")
+            print(f"replay psia {t}: {DES_N} x {DES_P}, {len(tr.records)} records, percent "
+                  f"error {res[0]['percent_error']!r} %, ranking {rows[0][0][0]} first at "
+                  f"{rows[0][0][1]} s, {rows[0][-1][0]} last at {rows[0][-1][1]} s; predict "
+                  f"serial {walls[0]!r} s, {DES_WORKERS} spawned workers "
+                  f"{walls[DES_WORKERS]!r} s, "
+                  f"{time.perf_counter() - t0!r} s in all; == the fixture")
+            if t == "gss":
+                d = choose_technique(N=DES_N, P=DES_P, trace=tr, seed=0)
+                print(f"replay psia choose_technique: {d['chosen']} from {d['N_sim']} "
+                      f"iterations, {d['n_evaluated']} evaluated, sweep_s {d['sweep_s']!r} s")
+
+        # -- (d) the CLI -------------------------------------------------------
+        env = dict(os.environ, PYTHONPATH=str(root / "src"))
+        store = tmp / "cli"
+        trace_path = str(store / "smoke.jsonl")
+        for args in (["record", "--n", "2000", "--p", "4", "--technique", "fac2",
+                      "--executor", "sim", "--het", "--store", str(store), "--name", "smoke"],
+                     ["calibrate", "--trace", trace_path],
+                     ["predict", "--trace", trace_path, "--workers", "0"],
+                     ["gantt", "--trace", trace_path, "--svg", str(store / "g.svg")]):
+            r = subprocess.run([sys.executable, "-m", "repro_torch.replay"] + args,
+                               capture_output=True, text=True, cwd=tmp, env=env,
+                               timeout=300)
+            check(r.returncode == 0, f"replay cli {args[0]}: exit {r.returncode}: "
+                  f"{r.stderr[-2000:]}")
+            print(f"replay cli {args[0]}: exit 0; {r.stdout.splitlines()[-1]!r}")
+    print(f"replay phase: {time.perf_counter() - t_phase:.1f} s wall")
 
 
 def main() -> int:
@@ -1383,6 +1570,8 @@ def main() -> int:
     print(f"ssm phase: {time.perf_counter() - t_ssm:.1f} s wall")
     # -- 9. the DES (no kernel: the fast path's batch core on the card) -----
     des_path()
+    # -- 10. replay: device traces, technique="auto", PSIA, the CLI --------
+    replay_path(root, P, costs, sessions, image)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

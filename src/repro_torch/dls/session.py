@@ -1,8 +1,7 @@
 """DLSession: the one entry point for self-scheduled loops.
 
-Port of ``repro.dls.session``.  ``technique="auto"`` raises
-``ValueError`` until the replay slice lands (ROADMAP.md, "Modules to
-port", item 8).
+Port of ``repro.dls.session``.  ``technique="auto"`` runs the port's
+``repro_torch.replay`` selection sweep, as the reference does.
 
 A session binds a ``LoopSpec`` to a ``Runtime`` (one-sided / two-sided), a
 ``WeightPolicy`` (uniform / static WF / adaptive AWF), and a metrics log,
@@ -92,8 +91,8 @@ class DLSession:
         # Per-chunk timing records (repro.replay capture plane): appended in
         # completion order by ``record`` when executors pass timestamps.
         self._chunk_times: List[dict] = []
-        # technique="auto" selection record (DESIGN.md Sec. 9), threaded
-        # into every report; None until the replay slice is ported.
+        # technique="auto" selection record, set by ``loop`` (DESIGN.md
+        # Sec. 9); threaded into every report.
         self.auto_decision: Optional[dict] = None
         self._grow_lock = threading.Lock()  # only for pe >= P growth
         # Adaptive wiring (DESIGN.md Sec. 8): AF feeds measured AFStats to
@@ -406,12 +405,20 @@ def loop(
     costs=None,
     speeds=None,
     trace=None,
+    auto_seed: int = 0,
+    auto_budget_s: Optional[float] = 2.0,
+    auto_workers=None,
+    auto_engine: str = "auto",
 ) -> DLSession:
     """Open a DLS session over ``[0, N)`` -- the facade's front door.
 
     N, technique, P, min_chunk, max_chunk: the ``LoopSpec`` fields.
-        ``technique="auto"`` (the reference's calibrated DES selection)
-        is not ported yet and raises ``ValueError``.
+        ``technique="auto"`` runs the calibrated DES sweep of
+        ``repro_torch.replay`` (seeded, bounded-time) over every technique
+        and adopts the predicted-best one; the decision (chosen technique +
+        full predicted ranking) lands in ``SessionReport.auto_decision``.
+        With ``runtime="device"`` the sweep raises ``ValueError``, as in
+        the reference: the DES has no ``device`` impl.
     runtime: "one_sided" (paper protocol) | "two_sided" (master-worker) |
         "hierarchical" (two-level node/global scheduling; needs ``nodes=``) |
         "device" (the one-sided protocol with counters in device memory --
@@ -435,16 +442,34 @@ def loop(
         scheduling domains, and the technique used *within* a node
         (defaults to SS; ``technique`` becomes the outer, super-chunk-level
         technique).  Rejected for flat runtimes.
-    costs / speeds / trace: the reference's ``technique="auto"`` selection
-        hints; with an explicit technique they have no effect and warn,
-        as in the reference.  (The ``auto_*`` sweep knobs arrive with the
-        replay slice.)
+    costs / speeds / trace / auto_seed / auto_budget_s / auto_workers:
+        selection inputs, consumed only by ``technique="auto"`` -- a
+        per-iteration cost hint (any length; resampled), a per-PE speed
+        hint, a recorded ``repro_torch.replay`` Trace (or path, from
+        either package) to calibrate the sweep from, the sweep's DES seed,
+        its wall-clock budget in seconds (None = unbounded), and the
+        ``simulate_many`` worker knob for the candidate sweep (None =
+        adaptive process fan-out).  With an explicit technique the hints
+        have no effect and warn, as in the reference.  See DESIGN.md
+        Sec. 9-10.
+    auto_engine: DES execution strategy for the selection sweep
+        ("auto" routes non-adaptive candidates through the vectorized
+        fast path, DESIGN.md Sec. 12; "kernel" forces the event
+        kernel).  Either way the ranking is identical -- the routes are
+        equivalence-pinned.
     """
+    auto_decision = None
     if technique == "auto":
-        raise ValueError(
-            'technique="auto" is not ported to repro_torch yet; it needs the '
-            "replay slice (ROADMAP.md, 'Modules to port', item 8)")
-    if costs is not None or speeds is not None or trace is not None:
+        from repro_torch.replay.select import choose_technique
+
+        auto_decision = choose_technique(
+            N=N, P=P, runtime=runtime, nodes=nodes,
+            inner_technique=inner_technique, costs=costs, speeds=speeds,
+            trace=trace, min_chunk=min_chunk, max_chunk=max_chunk,
+            seed=auto_seed, budget_s=auto_budget_s, workers=auto_workers,
+            engine=auto_engine)
+        technique = auto_decision["chosen"]
+    elif costs is not None or speeds is not None or trace is not None:
         warnings.warn(
             "costs=/speeds=/trace= are technique=\"auto\" selection hints "
             "and have no effect on an explicitly chosen technique "
@@ -482,4 +507,7 @@ def loop(
             f"{POLICY_DRIVEN} consume a weight policy); the supplied policy "
             f"will have no effect",
             stacklevel=2)
-    return DLSession(spec, rt, weights=policy, record_metrics=record_metrics)
+    session = DLSession(spec, rt, weights=policy,
+                        record_metrics=record_metrics)
+    session.auto_decision = auto_decision
+    return session

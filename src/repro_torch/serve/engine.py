@@ -18,9 +18,9 @@ default, the reference's behaviour) and passes it to ``prefill`` and
 ``decode_step``, so a server on the card can run the prefill through the
 SSD scan kernel (``backend="pallas"``).  It drops the reference's
 ``max_len`` and ``batch_size``, which nothing reads (the cache is sized
-from the prompt and ``max_new``), and ``ctx`` (sharding is not ported);
-``ContinuousBatcher`` drops ``auto_seed`` until ``technique="auto"`` is
-ported.
+from the prompt and ``max_new``), and ``ctx`` (sharding is not ported).
+``ContinuousBatcher`` is the reference's, ``technique="auto"`` and
+``auto_seed`` included.
 """
 from __future__ import annotations
 
@@ -79,16 +79,19 @@ class ContinuousBatcher:
     one-sided protocol.  Per-request cost = prefill + new tokens (supplied by
     ``cost_model`` or real engine calls).  Returns per-request latencies.
 
-    ``technique="auto"`` (the reference's calibrated-DES selection) raises
-    the ``ValueError`` of the port's ``dls.loop``: it needs the replay
-    slice, which is not ported.
+    ``technique="auto"`` runs the ``repro_torch.replay`` selection sweep
+    per queue: each request's ``max_new`` (when present) becomes the
+    per-iteration cost hint, so admission control picks the technique the
+    calibrated DES predicts fastest for *this* queue shape.  The decision
+    lands in ``last_report.auto_decision``.
     """
 
     def __init__(self, n_workers: int = 4, technique: str = "gss",
-                 min_chunk: int = 1):
+                 min_chunk: int = 1, auto_seed: int = 0):
         self.n_workers = n_workers
         self.technique = technique
         self.min_chunk = min_chunk
+        self.auto_seed = auto_seed
         self.last_report: Optional[dls.SessionReport] = None  # of last schedule()
 
     def schedule(
@@ -104,8 +107,15 @@ class ContinuousBatcher:
         """
         N = len(requests)
         technique = "static" if static else self.technique
+        auto_kw = {}
+        if technique == "auto":
+            # Selection hint: generation length dominates per-request cost.
+            if requests and hasattr(requests[0], "max_new"):
+                auto_kw["costs"] = np.array(
+                    [float(r.max_new) for r in requests])
+            auto_kw["auto_seed"] = self.auto_seed
         session = dls.loop(N, technique=technique, P=self.n_workers,
-                           min_chunk=self.min_chunk)
+                           min_chunk=self.min_chunk, **auto_kw)
         t_worker = np.zeros(self.n_workers)
         done_at = np.zeros(N)
         while not session.drained():

@@ -144,5 +144,7 @@ def test_unported_backends_raise_and_auto_falls_back():
     # executor="sim" is ported: without costs= it raises the reference's error
     with pytest.raises(ValueError, match="needs per-iteration costs="):
         s.execute(None, executor="sim")
-    with pytest.raises(ValueError, match="not ported"):
-        tdls.loop(50, "auto", P=2)
+    # technique="auto" is ported; with runtime="device" its sweep raises
+    # the reference's error (the DES has no device impl)
+    with pytest.raises(ValueError, match="unknown impl 'device'"):
+        tdls.loop(50, "auto", P=2, runtime="device")

@@ -135,8 +135,18 @@ def test_batcher_schedule_matches_reference(technique, static, cost):
 
 
 def test_batcher_auto_raises_the_facade_error():
-    with pytest.raises(ValueError, match="auto"):
-        ContinuousBatcher(technique="auto").schedule(_requests(4), _unit_cost)
+    """technique="auto" is ported (tests/test_torch_replay.py holds its
+    schedules to the reference's); with no workers the facade's error
+    comes through, the same in both packages."""
+    from repro.serve import ContinuousBatcher as JBatcher
+
+    msgs = []
+    for batcher in (JBatcher, ContinuousBatcher):
+        with pytest.raises(ValueError, match="N and P must be positive") as e:
+            batcher(n_workers=0, technique="auto").schedule(_requests(4),
+                                                            _unit_cost)
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]
 
 
 # ---------------------------------------------------------------------------

@@ -232,8 +232,10 @@ def test_sim_executor_needs_costs():
 def test_other_unported_paths_still_raise():
     with pytest.raises(ValueError, match="item 9"):
         tdls.loop(100, "gss", P=4).execute(None, executor="processes")
-    with pytest.raises(ValueError, match="item 8"):
-        tdls.loop(100, "auto", P=4)
+    # "auto" is ported (item 8); on the device runtime its sweep raises
+    # as the reference's does
+    with pytest.raises(ValueError, match="unknown impl 'device'"):
+        tdls.loop(100, "auto", P=4, runtime="device")
     assert "sim" in tdls.EXECUTORS
 
 
