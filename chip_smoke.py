@@ -76,10 +76,25 @@ protocol and applications through the port's public entry points:
      their percent errors and full-N rankings (serial == 4 spawned
      workers) against ``tests/fixtures/torch_replay_psia.json``, written
      by the JAX package; and ``python -m repro_torch.replay`` record,
-     calibrate, predict and gantt in subprocesses.
+     calibrate, predict and gantt in subprocesses;
+ 11. real OS processes (``repro_torch.pt``): the 4096x4096 image of phase
+     3 in 512 bands of 8 rows, ``dls.loop(512, t, P=P, window="shm")``
+     drained by ``executor="processes"`` with P = min(8, cores) worker
+     processes, each bringing up its own CUDA context (forkserver: CUDA is
+     up in this process) and rendering its claimed bands with the static
+     kernel -- one- and two-sided (the master in this process) over
+     static, ss, gss and fac2, hierarchical gss over 2 nodes with inner
+     ss, and fac2 with one PE killed mid-chunk (its prefix salvaged, the
+     rest orphaned to survivors).  Every run must render each band exactly
+     once with a digest equal to this process's serial render, each of
+     whose bands is held to its own plain version and whose assembled
+     image is held to phase 3's image and its plain version; then the
+     window's RMW latency and contention at P = 1, 2, 4, 8, and one run's
+     trace calibrated with the measured ``o_rma``.
 
-The launch counts are zeroed just before each path (2-5, 6, 7, 8, and
-10's run of the selected technique) and read just after.  Every kernel is
+The launch counts are zeroed just before each path (2-5, 6, 7, 8, 10's run
+of the selected technique, and 11, whose worker processes count their own
+launches into shared memory) and read just after.  Every kernel is
 then held against its plain PyTorch version on the same inputs, every
 schedule against the host plan, the two model
 backends against each other, and each kernel is timed with CUDA events
@@ -126,6 +141,80 @@ REPS = 5
 def check(cond, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
+
+
+def become_subreaper() -> None:
+    """Make this process its descendants' reaper (Linux
+    ``PR_SET_CHILD_SUBREAPER``): a worker whose parent (the forkserver)
+    exits before it does becomes a child here, where ``stop_children``
+    sees it, and not init's."""
+    import ctypes
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    check(libc.prctl(36, 1, 0, 0, 0) == 0,
+          f"prctl(PR_SET_CHILD_SUBREAPER): errno {ctypes.get_errno()}")
+
+
+def _children() -> list:
+    """(pid, command) of every process whose parent is this one."""
+    import os
+
+    me, kids = os.getpid(), []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            stat = Path(f"/proc/{name}/stat").read_text()
+            cmd = Path(f"/proc/{name}/cmdline").read_bytes()
+        except OSError:  # exited meanwhile
+            continue
+        if int(stat.rsplit(")", 1)[1].split()[1]) == me:
+            kids.append((int(name), cmd.replace(b"\0", b" ").decode(errors="replace")[:160]))
+    return kids
+
+
+def _reap(grace_s: float, keep=()) -> list:
+    """Wait up to ``grace_s`` for every child but ``keep`` to exit, reaping
+    each; SIGKILL what is left, and return (pid, command) of those."""
+    import os
+    import signal
+
+    deadline, killed = time.monotonic() + grace_s, []
+    while True:
+        kids = [k for k in _children() if k[0] not in keep]
+        for pid, _ in kids:
+            try:
+                os.waitpid(pid, os.WNOHANG)
+            except ChildProcessError:
+                pass
+        kids = [k for k in _children() if k[0] not in keep]
+        if not kids:
+            return killed
+        if time.monotonic() > deadline:
+            for pid, cmd in kids:
+                os.kill(pid, signal.SIGKILL)
+                try:
+                    os.waitpid(pid, 0)
+                except ChildProcessError:
+                    pass
+                killed.append((pid, cmd))
+        time.sleep(0.05)
+
+
+def stop_children(grace_s: float = 20.0) -> list:
+    """Stop every process this script started before it exits: the
+    forkserver the processes executor started (with torch preloaded its
+    exit takes a while, and it would outlive the script), then every other
+    child, then multiprocessing's resource tracker (it exits once the last
+    holder of its pipe has).  Returns (pid, command) of each process that
+    was still running after ``grace_s`` and had to be killed."""
+    from multiprocessing import forkserver, resource_tracker
+
+    forkserver._forkserver._stop()  # EOF on its pipe; waits for it to exit
+    tracker = resource_tracker._resource_tracker
+    killed = _reap(grace_s, keep={tracker._pid})
+    tracker._stop()
+    return killed + _reap(grace_s)
 
 
 def cuda_ms(fn, reps: int = REPS, warmup: bool = True, per: int = 1):
@@ -1260,6 +1349,335 @@ def replay_path(root: Path, P: int, costs, sessions, image) -> None:
     print(f"replay phase: {time.perf_counter() - t_phase:.1f} s wall")
 
 
+# phase 11: the paper's one- against two-sided comparison over real OS
+# processes (repro_torch.pt) -- the main path's 4096x4096 Mandelbrot image in
+# 8-row bands (examples/dls_mandelbrot.py's TILE), one scheduled iteration a
+# band, each band rendered by the static kernel in the process that claimed it
+BAND_ROWS = 8
+BAND_YLIM = (-1.5, 1.5)
+PT_TECHNIQUES = ("static", "ss", "gss", "fac2")
+PT_TIMEOUT_S, PT_SPAWN_TIMEOUT_S = 240.0, 120.0
+_BAND_SHM: dict = {}  # per process: shared-memory name -> (segment, int64 view)
+_BAND_CALLS = 0  # the kill run's count of the victim's sub-blocks
+
+
+def _band_data(name: str):
+    got = _BAND_SHM.get(name)
+    if got is None:
+        from multiprocessing import shared_memory
+
+        import numpy as np
+
+        shm = shared_memory.SharedMemory(name=name)
+        got = _BAND_SHM[name] = (shm, np.ndarray((len(shm.buf) // 8,), np.int64,
+                                                 buffer=shm.buf))
+    return got[1]
+
+
+class BandResults:
+    """What the band workers write, in shared memory the parent owns: a hit
+    per band (``workloads.mark_hits``), and in one int64 array each band's
+    count sum and 64-bit hash, each PE's kernel launches and its CUDA
+    start-up in ns.  ``spec`` is what a worker needs to find them."""
+
+    def __init__(self, n: int, P: int):
+        from multiprocessing import shared_memory
+
+        import numpy as np
+
+        from repro_torch.pt import workloads
+
+        self.n, self.P = n, P
+        self._hits, hits_name = workloads.alloc_hits(n)
+        self._data = shared_memory.SharedMemory(create=True, size=8 * (2 * n + 2 * P))
+        _BAND_SHM[self._data.name] = (self._data, np.ndarray(
+            (2 * n + 2 * P,), np.int64, buffer=self._data.buf))
+        self.spec = (hits_name, self._data.name, n, P)
+        self.reset()
+
+    def _view(self):
+        return _BAND_SHM[self._data.name][1]
+
+    def reset(self) -> None:
+        self._hits.buf[:self.n] = bytes(self.n)
+        self._view()[:] = 0
+
+    def hits(self):
+        import numpy as np
+
+        return np.frombuffer(bytes(self._hits.buf[:self.n]), np.uint8)
+
+    def digests(self):
+        """(n, 2) int64: each band's count sum and hash."""
+        return self._view()[:2 * self.n].reshape(2, self.n).T.copy()
+
+    def launches(self):
+        return self._view()[2 * self.n:2 * self.n + self.P].copy()
+
+    def startup_s(self):
+        """Each PE's CUDA start-up, in s (0 where it brought none up)."""
+        return self._view()[2 * self.n + self.P:] / 1e9
+
+    def close(self) -> None:
+        _BAND_SHM.pop(self._data.name)  # drop the view before the segment
+        for shm in (self._hits, self._data):
+            shm.close()
+            shm.unlink()
+
+
+def band_ylim(t: int, width: int):
+    """Band ``t``'s rows of the width x width image, as ``examples/
+    dls_mandelbrot.py`` computes them: they depend on ``t`` alone, so the
+    image does not depend on how the bands were chunked."""
+    dy = (BAND_YLIM[1] - BAND_YLIM[0]) / max(width - 1, 1)
+    return (BAND_YLIM[0] + dy * (t * BAND_ROWS),
+            BAND_YLIM[0] + dy * (t * BAND_ROWS + BAND_ROWS - 1))
+
+
+def band(t: int, width: int, ct: int):
+    """Band ``t`` on the card: (counts, int64 sum, 64-bit hash of its bytes)."""
+    import hashlib
+
+    import numpy as np
+
+    from repro_torch.kernels import mandelbrot
+
+    counts = mandelbrot(width, BAND_ROWS, ct=ct, ylim=band_ylim(t, width))
+    host = counts.cpu().numpy()
+    h = hashlib.blake2b(host.tobytes(), digest_size=8).digest()
+    return counts, int(host.sum(dtype=np.int64)), int.from_bytes(h, "little", signed=True)
+
+
+def render_bands(spec, width: int, ct: int, a: int, b: int) -> None:
+    """``work_fn`` of the processes runs: render bands [a, b) on the card,
+    write each band's digest and hit, and this PE's launches.  The first
+    call in a process without CUDA records its start-up (torch's import
+    where the server did not preload it, the context, the kernel library's
+    load)."""
+    t0 = time.perf_counter()
+    cold = "torch" not in sys.modules or not sys.modules["torch"].cuda.is_initialized()
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.pt import worker, workloads
+
+    hits_name, data_name, n, P = spec
+    pe = worker.CURRENT_PE or 0  # the two-sided master runs in the parent as PE 0
+    data = _band_data(data_name)
+    if cold:
+        torch.empty(1, device="cuda")
+        torch.cuda.synchronize()
+        _build.library("mandelbrot")
+        data[2 * n + P + pe] = int((time.perf_counter() - t0) * 1e9)
+    for t in range(a, b):
+        before = _build.LAUNCHES["mandelbrot_static"]
+        _, total, digest = band(t, width, ct)
+        data[2 * n + pe] += _build.LAUNCHES["mandelbrot_static"] - before
+        data[t], data[n + t] = total, digest
+        workloads.mark_hits(hits_name, t, t + 1)
+
+
+def render_bands_die_at(spec, width: int, ct: int, victim: int, die_after: int,
+                        a: int, b: int) -> None:
+    """``render_bands``, but PE ``victim`` dies (``os._exit(77)``) before its
+    ``die_after + 1``-th sub-block, as ``workloads.die_at`` does."""
+    import os
+
+    global _BAND_CALLS
+    from repro_torch.pt import worker
+
+    if worker.CURRENT_PE == victim:
+        if _BAND_CALLS >= die_after:
+            os._exit(77)
+        _BAND_CALLS += 1
+    render_bands(spec, width, ct, a, b)
+
+
+def bands_plain(width: int, ct: int, n: int, device="cuda"):
+    """Every band's plain version in one call, (n, 8, width) int32: each
+    band at the f32 geometry its own kernel launch gets (``mandelbrot_ref(
+    width, 8, ylim=band_ylim(t, width))``), iterated together."""
+    import torch
+
+    from repro_torch.kernels.mandelbrot.ref import escape_counts_at, geometry
+
+    geo = [geometry(width, BAND_ROWS, (-2.0, 1.0), band_ylim(t, width)) for t in range(n)]
+    xmin, dx = geo[0][:2]
+    ymin, dy = (torch.tensor([g[k] for g in geo], dtype=torch.float32,
+                             device=device)[:, None, None] for k in (2, 3))
+    cols = torch.arange(width, dtype=torch.int32, device=device)
+    rows = torch.arange(BAND_ROWS, dtype=torch.int32, device=device)[:, None]
+    return escape_counts_at(xmin + cols.to(torch.float32) * dx,
+                            ymin + rows.to(torch.float32) * dy, ct=ct)
+
+
+def serial_bands(width: int, ct: int, n: int):
+    """The parent's own render of every band, one after another, each held
+    against its plain version: the assembled (n * 8, width) image on the
+    card, the (n, 2) digests, and the largest fraction of a band's pixels
+    and |count| difference against the plain version."""
+    import numpy as np
+    import torch
+
+    image = torch.empty((n * BAND_ROWS, width), dtype=torch.int32, device="cuda")
+    digests = np.zeros((n, 2), np.int64)
+    for t in range(n):
+        counts, total, h = band(t, width, ct)
+        image[t * BAND_ROWS:(t + 1) * BAND_ROWS] = counts
+        digests[t] = total, h
+    plain = bands_plain(width, ct, n)
+    from repro_torch.kernels import mandelbrot_ref
+
+    mid = mandelbrot_ref(width, BAND_ROWS, ct=ct, ylim=band_ylim(n // 2, width))
+    check(torch.equal(plain[n // 2], mid),
+          "pt: the batched plain bands == mandelbrot_ref of one band")
+    got = image.view(n, BAND_ROWS, width)
+    frac = (got != plain).double().mean(dim=(1, 2))
+    worst = int(frac.argmax())
+    check(float(frac[worst]) < 0.005,
+          f"pt: band {worst} differs from its plain version in {float(frac[worst])!r} "
+          "of its pixels (< 0.5 % each band)")
+    err = float((got - plain).abs().max())
+    return image, digests, float(frac[worst]), err
+
+
+def processes_path(image, plain_image, smi: str) -> dict:
+    """Phase 11: ``dls.loop(512, t, P=P, window="shm")`` drained by
+    ``executor="processes"`` with P = min(8, cores) worker processes, each
+    bringing up its own CUDA context, rendering the main path's image band
+    by band.
+
+    One- and two-sided over static, ss, gss and fac2; hierarchical gss over
+    2 nodes with inner ss; fac2 with PE 1 killed mid-chunk (salvage and
+    orphans).  Every run must render every band exactly once, with digests
+    equal to the parent's serial render, each of whose bands is held to
+    its plain version, and whose assembled image is held to the full-image
+    kernel and to its plain version.  Then the window's RMW latency and
+    contention, and one run's trace calibrated with the measured
+    ``o_rma``.  Returns row 2's launches on this path.
+    """
+    import functools
+    import math
+    import os
+    import shutil
+
+    import torch
+
+    from repro_torch import dls
+    from repro_torch.kernels import _build, mandelbrot
+    from repro_torch.pt import measure_contention, measure_rmw_latency
+    from repro_torch.pt.executor import pick_start_method
+    from repro_torch.replay import Trace, calibrate
+
+    t_phase = time.perf_counter()
+    n, width = IMG // BAND_ROWS, IMG
+    P = min(8, os.cpu_count() or 1)
+    method = pick_start_method()
+    print(f"pt: N={n} bands of {BAND_ROWS}x{width}, CT {CT}, P={P} processes; "
+          f"os.cpu_count()={os.cpu_count()}, /dev/shm free "
+          f"{shutil.disk_usage('/dev/shm').free} bytes; start method {method!r} "
+          f"(CUDA is up in the parent)")
+    check(method == "forkserver", "pt: forkserver once CUDA is up")
+
+    # the parent's serial render: the digests every run is held to
+    t0 = time.perf_counter()
+    assembled, want, band_frac, band_err = serial_bands(width, CT, n)
+    torch.cuda.synchronize()
+    serial_s = time.perf_counter() - t0
+    frac = (assembled != image).double().mean().item()
+    frac_plain = (assembled != plain_image).double().mean().item()
+    check(frac < 0.005 and frac_plain < 0.005,
+          f"pt: bands vs full image {frac!r}, vs plain {frac_plain!r} (< 0.5 %)")
+    mid = band_ylim(n // 2, width)
+    kernel_ms = cuda_ms(lambda: mandelbrot(width, BAND_ROWS, ct=CT, ylim=mid), per=64)
+    band_ms = host_ms(lambda: band(n // 2, width, CT))
+    print(f"pt serial: {n} bands rendered and held to their plain versions in the "
+          f"parent {serial_s!r} s; the worst band differs from its plain version in "
+          f"{band_frac!r} of its pixels (max |err| {band_err!r}); band {n // 2} with "
+          f"its copy and hash {band_ms!r} ms, its kernel {kernel_ms!r} ms back to "
+          f"back; the assembled image differs from the full-image kernel in "
+          f"{frac!r} of pixels, from the full plain image in {frac_plain!r} ({smi})")
+
+    out = BandResults(n, P)
+    runs, launched = {}, []
+
+    def run(label, technique, work=None, progress=64, deaths=0, **kw):
+        out.reset()
+        session = dls.loop(n, technique, P=P, window="shm", **kw)
+        fn = work or functools.partial(render_bands, out.spec, width, CT)
+        try:
+            rep = session.execute(fn, executor="processes", timeout=PT_TIMEOUT_S,
+                                  spawn_timeout=PT_SPAWN_TIMEOUT_S, progress=progress)
+        finally:
+            session.close()
+        ps = rep.process_stats
+        check(rep.total_iters == n, f"pt {label}: {rep.total_iters} iterations of {n}")
+        check(out.hits().tolist() == [1] * n, f"pt {label}: every band exactly once")
+        check((out.digests() == want).all(), f"pt {label}: digests == the serial render's")
+        per_pe = out.launches()
+        check(int(per_pe.sum()) == n, f"pt {label}: {int(per_pe.sum())} launches, {n} bands")
+        check(ps["n_deaths"] == deaths, f"pt {label}: {ps['n_deaths']} deaths")
+        up = out.startup_s()
+        for e in ps["per_pe"]:
+            if e.get("n_chunks", 0) + e.get("n_orphans", 0) > 0:
+                check(up[e["pe"]] > 0, f"pt {label}: PE {e['pe']}'s start-up recorded")
+        t_up = float(up.max())
+        launched.append(int(per_pe.sum()))
+        print(f"pt {label}: T_loop {rep.wall_time!r} s, {rep.wall_time - t_up!r} s "
+              f"without the largest CUDA start-up; teardown {ps['teardown_s']!r} s; "
+              f"claims {rep.steps}; RMW global {rep.n_rmw_global} local "
+              f"{rep.n_rmw_local}; {ps['start_method']}/{ps['window_backend']}; "
+              f"CUDA start-up per PE (s) {[float(x) for x in up]!r}; launches per "
+              f"PE {per_pe.tolist()} (host times of the card's machine, {smi})")
+        runs[label] = rep
+        return rep
+
+    try:
+        _build.reset_launches()
+        for t in PT_TECHNIQUES:
+            for rt in ("one_sided", "two_sided"):
+                run(f"{t} {rt}", t, runtime=rt)
+        rep = run("gss hierarchical", "gss", runtime="hierarchical", nodes=2,
+                  inner_technique="ss")
+        check(rep.n_rmw_local > rep.n_rmw_global > 0,
+              f"pt hierarchical: local RMWs {rep.n_rmw_local} > global {rep.n_rmw_global}")
+        # PE 1 dies before its 2nd sub-block of 4 bands: its first fac2 chunk is
+        # 32 bands, so 4 are salvaged and 28 orphaned to survivors
+        rep = run("fac2 kill", "fac2", progress=4, deaths=1,
+                  work=functools.partial(render_bands_die_at, out.spec, width, CT, 1, 1))
+        ps = rep.process_stats
+        victim = next(e for e in ps["per_pe"] if e.get("died"))
+        check(victim["pe"] == 1 and victim["exitcode"] == 77, "pt kill: PE 1 died with 77")
+        check(victim["salvaged_iters"] == 4 and victim["orphaned_iters"] > 0,
+              f"pt kill: salvaged {victim['salvaged_iters']}, orphaned {victim['orphaned_iters']}")
+        check(sum(o["size"] for o in ps["orphans"]) == victim["orphaned_iters"]
+              and all(o["by_pe"] != 1 for o in ps["orphans"]), "pt kill: orphans re-executed")
+        print(f"pt kill: PE 1 salvaged {victim['salvaged_iters']} bands, orphaned "
+              f"{victim['orphaned_iters']}, re-executed by PEs "
+              f"{sorted({o['by_pe'] for o in ps['orphans']})}")
+        parent = _build.LAUNCHES["mandelbrot_static"]
+        check(parent == sum(runs[f"{t} two_sided"].per_pe_iters[0] for t in PT_TECHNIQUES),
+              f"pt: the parent's {parent} launches == the two-sided master's bands")
+        print(f"pt launches of mandelbrot_static: {sum(launched)} over {len(runs)} runs, "
+              f"{parent} of them by the two-sided master in the parent")
+    finally:
+        out.close()
+
+    lat = measure_contention((1, 2, 4, 8), base=measure_rmw_latency())
+    print(f"pt {lat.summary()} (host times of the card's machine, {smi})")
+    native = runs["fac2 one_sided"]
+    cal = calibrate(Trace.from_report(native, meta={"seed": 0}),
+                    **lat.calibration_overrides(contended_p=P))
+    err = cal.percent_error()
+    check(math.isfinite(err), f"pt: calibrated percent error {err!r}")
+    print(f"pt calibrate fac2 one_sided with the measured o_rma at P={P}: predicted "
+          f"T_loop {cal.simulate().T_loop!r} s against {native.wall_time!r} s, "
+          f"percent error {err!r}")
+    print(f"pt phase: {time.perf_counter() - t_phase:.1f} s wall")
+    return {"processes_launches": sum(launched), "processes_runs": len(runs),
+            "processes_parent_launches": parent}
+
+
 def main() -> int:
     root = Path(__file__).resolve().parent
     if not (root / "src" / "repro_torch" / "csrc").is_dir():
@@ -1275,6 +1693,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
               file=sys.stderr)
         return 2
+    become_subreaper()
 
     from repro_torch import dls
     from repro_torch.core.chunk_calculus import max_steps_bound, plan
@@ -1577,7 +1996,14 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    # -- 11. processes: bands of the image over real OS processes ----------
+    next(r for r in rows if r["name"] == "mandelbrot_static").update(
+        processes_path(image, plain_image, card))
+    killed = stop_children()
+    print(f"processes: every child stopped; {len(killed)} killed after the grace "
+          f"period {killed!r}")
+    print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -1585,4 +2011,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        stop_children()

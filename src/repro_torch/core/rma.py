@@ -1,11 +1,13 @@
 """Passive-target RMA window abstraction.
 
 Port of ``repro.core.rma``: ``Window``, ``ThreadWindow``, ``SimWindow`` and
-the hierarchical composition are transliterated unchanged.  The multi-host
-KV-store window and the shared-memory window are not ported yet
-(ROADMAP.md, "Modules to port", item 9); asking for them raises
-``NotImplementedError``.  ``"device"`` builds
-:class:`repro_torch.device.window.DeviceWindow`.
+the hierarchical composition are transliterated unchanged.  ``"shm"``
+builds :class:`repro_torch.pt.window.SharedMemWindow` (the reference's slab
+layout, attachable by either package); ``"device"`` builds
+:class:`repro_torch.device.window.DeviceWindow`.  ``KVStoreWindow`` is the
+reference's multi-host window over the store of ``torch.distributed``'s
+default process group, where the reference uses the JAX coordination
+service.
 
 The paper's mechanism: a *non-dedicated coordinator* exposes two integers
 (``i`` -- the scheduling-step counter, and ``lp_start`` -- the loop pointer)
@@ -28,7 +30,11 @@ host-coordination plane.  ``Window`` is the abstraction; the backends here:
     being modeled.
   * ``DeviceWindow`` (``repro_torch.device.window``) -- the counters in an
     int32 slab in device memory, fetch-added by a one-thread atomic kernel.
-  * ``KVStoreWindow`` / shared memory -- not ported yet (see above).
+  * ``SharedMemWindow`` (``repro_torch.pt.window``) -- a named
+    shared-memory slab any OS process can attach; the ``processes``
+    executor's window.
+  * ``KVStoreWindow``  -- multi-host, over the ``torch.distributed`` store
+    (``add`` is the store's atomic fetch-add).
 
 All backends implement ``fetch_add(key, delta) -> old_value``, ``read(key)``
 and ``read_many(keys)``; backends that may be unavailable in a given
@@ -299,40 +305,77 @@ class _LevelWindow(Window):
             self.n_rmw = 0
 
 
-_NOT_PORTED = ("{} is not ported to repro_torch yet; it lands with the "
-               "passive-target slice (ROADMAP.md, 'Modules to port', item 9)")
-
-
 class KVStoreWindow(Window):
-    """Multi-host window over a coordination service's atomic increment.
+    """Multi-host window over the ``torch.distributed`` store.
 
-    Not ported yet: constructing one raises ``NotImplementedError``
-    (``availability()`` says why), so ``make_window("auto")`` keeps the
-    reference's semantics and falls back to a ``ThreadWindow``.
+    Requires ``torch.distributed.init_process_group(...)`` to have been
+    called (a real multi-process run); the window uses that group's store
+    (a ``TCPStore`` under ``tcp://`` or ``env://`` rendezvous), the
+    counterpart of the reference's JAX coordination service.  ``add`` is
+    an atomic RMW executed by the store's server; it returns the *new*
+    value, so the fetched (old) value is ``new - delta`` -- the same value
+    ``MPI_Get_accumulate`` would have returned.
     """
 
     def __init__(self, namespace: str = "repro/dls"):
-        raise NotImplementedError(_NOT_PORTED.format("KVStoreWindow"))
+        ok, reason = self.availability()
+        if not ok:
+            raise RuntimeError(f"KVStoreWindow unavailable: {reason}")
+        import torch.distributed as dist
+        from torch.distributed import distributed_c10d
+
+        if not dist.is_initialized():
+            raise RuntimeError(
+                "KVStoreWindow requires torch.distributed.init_process_group(); "
+                "use ThreadWindow for single-host runs.")
+        self._store = distributed_c10d._get_default_store()
+        self._ns = namespace
 
     @classmethod
     def availability(cls) -> "tuple[bool, str]":
-        return False, _NOT_PORTED.format("KVStoreWindow")
+        """Usable iff this torch was built with ``torch.distributed``."""
+        import torch.distributed as dist
+
+        if not dist.is_available():
+            return False, "this torch was built without torch.distributed"
+        return True, ""
+
+    def _k(self, key: str) -> str:
+        return f"{self._ns}/{key}"
+
+    def fetch_add(self, key: str, delta: int) -> int:
+        return int(self._store.add(self._k(key), delta)) - delta
+
+    def read(self, key: str) -> int:
+        # add-by-0 is the cheapest consistent read the store offers
+        return int(self._store.add(self._k(key), 0))
+
+    def reset(self, key: str, value: int = 0) -> None:
+        raise NotImplementedError(
+            "KVStoreWindow counters are monotonic; create a new namespace per loop "
+            "(see scheduler.OneSidedRuntime which namespaces by loop id).")
 
 
 def make_window(backend: str = "auto", **kw) -> Window:
     """Pick a window backend. 'auto' prefers the KV store on multi-host runs.
 
+    ``"shm"`` builds a :class:`repro_torch.pt.window.SharedMemWindow` --
+    the real cross-process backend the ``processes`` executor schedules
+    through (imported lazily; ``repro_torch.pt`` imports no torch).
     ``"device"`` builds a :class:`repro_torch.device.window.DeviceWindow`
     (counters in device memory, on the card unless ``device="cpu"``).
-    ``"shm"`` and ``"kvstore"`` are not ported yet and raise
-    ``NotImplementedError``.
     """
     if backend == "thread":
         return ThreadWindow(**kw)
     if backend == "kvstore":
         return KVStoreWindow(**kw)
     if backend == "shm":
-        raise NotImplementedError(_NOT_PORTED.format("SharedMemWindow"))
+        from repro_torch.pt.window import SharedMemWindow
+
+        ok, reason = SharedMemWindow.availability()
+        if not ok:
+            raise RuntimeError(f"SharedMemWindow unavailable: {reason}")
+        return SharedMemWindow.create(**kw)
     if backend == "sim":
         return SimWindow(**kw)
     if backend == "device":

@@ -14,11 +14,12 @@ One composable session API over the paper's machinery (see DESIGN.md):
 Layers behind the facade (all swappable):
   Runtime      -- one_sided (two atomic fetch-adds, paper Sec. 3),
                   two_sided (master-worker baseline), hierarchical
-  Window       -- thread | sim | device | auto (repro_torch.core.rma)
+  Window       -- thread | shm | kvstore | sim | device | auto
+                  (repro_torch.core.rma, repro_torch.pt)
   WeightPolicy -- uniform | static WF | the adaptive family (AWF EMA,
                   AWF-B/C/D/E, AF) over online PerfModel telemetry
                   (DESIGN.md Sec. 8)
-  Executor     -- serial | threads | device
+  Executor     -- serial | threads | processes | sim | device
 """
 from repro_torch.core.chunk_calculus import (  # noqa: F401  (re-exported surface)
     ADAPTIVE,

@@ -1,8 +1,7 @@
 """Pluggable executors: how a session's claims actually get executed.
 
-Port of ``repro.dls.executors``: ``serial``, ``threads``, ``sim`` and
-``device``.  ``processes`` raises ``ValueError`` until its slice lands
-(ROADMAP.md, "Modules to port", item 9).
+Port of ``repro.dls.executors``: ``serial``, ``threads``, ``processes``,
+``sim`` and ``device``.
 
 The built-ins, all draining a ``DLSession`` to completion and returning a
 ``SessionReport``:
@@ -13,6 +12,8 @@ The built-ins, all draining a ``DLSession`` to completion and returning a
     claim independently (the paper's protocol); two-sided runtimes run the
     non-dedicated master-worker protocol (master interleaves serving the
     request queue with its own chunks).
+  * ``processes`` -- one real OS process per PE over a shared-memory
+    window (``repro_torch.pt``); open the session with ``window="shm"``.
   * ``sim``     -- the discrete-event simulator (``core/sim.py``): no real
     execution; pass per-iteration ``costs`` and per-PE ``speeds``.  This is
     how the paper's heterogeneous-cluster experiments run.
@@ -36,12 +37,6 @@ from repro_torch.core.scheduler import Claim, TwoSidedRuntime
 
 EXECUTORS = ("serial", "threads", "processes", "sim", "device")
 
-# Executors of the reference whose slices are still queued.
-_NOT_PORTED = {
-    "processes": "the passive-target slice (ROADMAP.md, 'Modules to port', "
-                 "item 9)",
-}
-
 WorkFn = Callable[[int, int], None]
 
 
@@ -53,10 +48,12 @@ def execute(session, work_fn: Optional[WorkFn], executor: str = "threads",
         if isinstance(session.runtime, TwoSidedRuntime):
             return _threads_two_sided(session, work_fn, **kw)
         return _threads_one_sided(session, work_fn, **kw)
-    if executor in _NOT_PORTED:
-        raise ValueError(
-            f"executor={executor!r} is not ported to repro_torch yet; it "
-            f"lands with {_NOT_PORTED[executor]}")
+    if executor == "processes":
+        # real OS processes over a shared-memory window (repro_torch.pt):
+        # the session must have been opened with window="shm"
+        from repro_torch.pt.executor import execute_processes
+
+        return execute_processes(session, work_fn, **kw)
     if executor == "sim":
         return _sim(session, **kw)
     if executor == "device":

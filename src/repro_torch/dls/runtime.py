@@ -1,6 +1,7 @@
 """The Runtime contract: what a claim source must implement.
 
-Port of ``repro.dls.runtime``, including the ``runtime="device"`` branch.
+Port of ``repro.dls.runtime``, including the ``runtime="device"`` branch
+and the hierarchical ``window="shm"`` one.
 
 All three protocol implementations in ``repro.core.scheduler`` --
 ``OneSidedRuntime`` (the paper's two-fetch-add distributed chunk
@@ -82,8 +83,10 @@ def make_runtime(
     ``inner_technique`` (default SS within the node).  Its window may be a
     ``HierarchicalWindow``, a plain ``Window``/backend name for the *global*
     level (node-local levels stay in-process -- on a cluster the global
-    level is the KV store and locals are per-host shared memory), or
-    ``"sim"`` for per-level clocked accounting.
+    level is the KV store and locals are per-host shared memory),
+    ``"sim"`` for per-level clocked accounting, or ``"shm"`` for
+    shared-memory slabs at both levels (what ``executor="processes"``
+    needs).
     """
     if runtime == "hierarchical":
         if nodes is None:
@@ -93,6 +96,12 @@ def make_runtime(
                 window = HierarchicalWindow(nodes)
             elif window == "sim":
                 window = HierarchicalWindow.sim(nodes)
+            elif window == "shm":
+                # both levels in shared memory: the processes executor
+                # needs every level attachable from any OS process
+                from repro_torch.pt.window import shm_hierarchical
+
+                window = shm_hierarchical(nodes)
             elif isinstance(window, str):
                 window = HierarchicalWindow(nodes, global_window=make_window(window))
             elif isinstance(window, Window):

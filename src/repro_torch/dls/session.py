@@ -254,11 +254,13 @@ class DLSession:
 
         executor: "serial" (round-robin claims on the calling thread),
         "threads" (real concurrency; two-sided runs the non-dedicated
-        master-worker protocol), "sim" (discrete-event simulation -- pass
+        master-worker protocol), "processes" (one real OS process per PE
+        over a shared-memory window -- open the session with
+        ``window="shm"``; ``work_fn`` must be picklable under
+        spawn/forkserver), "sim" (discrete-event simulation -- pass
         ``costs=`` and ``speeds=`` instead of executing ``work_fn``), or
         "device" (the whole claim loop in the protocol kernel; needs
-        ``runtime="device"``).  "processes" is not ported yet and raises
-        ``ValueError``.
+        ``runtime="device"``).
         """
         from . import executors
 
@@ -424,12 +426,15 @@ def loop(
         "device" (the one-sided protocol with counters in device memory --
         ``repro_torch.device``; pair with ``executor="device"`` to run the
         claim loop inside the CUDA protocol kernel).
-    window: "thread" | "sim" | "device" | "auto" | a shared ``Window``
-        object | None (thread; a CUDA ``DeviceWindow`` for
-        ``runtime="device"``).  "shm" and "kvstore" are not ported yet.
-        Ignored by two-sided runtimes; for hierarchical runtimes this is
-        the *global* level (or a ready ``HierarchicalWindow``) and
-        node-local levels stay in-process.
+    window: "thread" | "shm" | "kvstore" | "sim" | "device" | "auto" | a
+        shared ``Window`` object | None (thread; a CUDA ``DeviceWindow``
+        for ``runtime="device"``).  "shm" is the real cross-process
+        backend (``repro_torch.pt``) the ``processes`` executor requires;
+        "kvstore" runs over the ``torch.distributed`` store (needs
+        ``init_process_group``).  Ignored by two-sided runtimes; for
+        hierarchical runtimes this is the *global* level (or a ready
+        ``HierarchicalWindow``) and node-local levels stay in-process --
+        except "shm", which builds shared-memory slabs at *both* levels.
     weights: None/"uniform" | an adaptive policy name ("awf", "af",
         "awf_b".."awf_e") | a float sequence (static WF; also stored on
         the spec) | a ``WeightBoard`` | a ``WeightPolicy``.  Adaptive

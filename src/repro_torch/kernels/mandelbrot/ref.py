@@ -34,8 +34,15 @@ def escape_counts(rows: torch.Tensor, cols: torch.Tensor, *, ct: int,
     nothing is fused; ``2.0 * zr * zi`` evaluates as ``(2 * zr) * zi``.
     """
     xmin, dx, ymin, dy = geometry(width, height, xlim, ylim)
-    cr = xmin + cols.to(torch.float32) * dx
-    ci = ymin + rows.to(torch.float32) * dy
+    return escape_counts_at(xmin + cols.to(torch.float32) * dx,
+                            ymin + rows.to(torch.float32) * dy, ct=ct)
+
+
+def escape_counts_at(cr: torch.Tensor, ci: torch.Tensor, *,
+                     ct: int) -> torch.Tensor:
+    """Escape counts (int32) at f32 coordinates ``cr``/``ci`` (broadcast):
+    the loop of ``escape_counts``, for callers that build their own
+    coordinates (one launch's geometry per row block, say)."""
     shape = torch.broadcast_shapes(cr.shape, ci.shape)
     zr = torch.zeros(shape, dtype=torch.float32, device=cr.device)
     zi = torch.zeros_like(zr)

@@ -133,8 +133,8 @@ def calibrate(trace, nodes: Optional[int] = None,
 
     ``o_rma``/``o_rma_local``/``o_serve`` override the latency-fitted
     service times with *directly measured* constants -- e.g. from
-    the reference's ``repro.pt.latency.measure_rmw_latency`` against
-    the real shared-memory window (``pt`` is not ported yet).  A measured
+    ``repro_torch.pt.latency.measure_rmw_latency`` against the real
+    shared-memory window (``RMWLatency.calibration_overrides()``).  A measured
     service time beats the moment estimator whenever you have one: the
     minimum-latency fit conflates the RMW with wire/calculation residue.
     """

@@ -130,17 +130,25 @@ def test_adaptive_weight_models_match_reference(variant):
 
 
 def test_unported_backends_raise_and_auto_falls_back():
-    from repro_torch.core.rma import KVStoreWindow, ThreadWindow, make_window
+    """The passive-target backends are ported: shm builds a slab, kvstore
+    needs a process group, auto falls back to threads, and the processes
+    executor refuses an in-process window as the reference does."""
+    from repro_torch.core.rma import ThreadWindow, make_window
+    from repro_torch.pt import SharedMemWindow
 
-    assert not KVStoreWindow.available()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_window("shm")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    w = make_window("shm", capacity=8)
+    try:
+        assert isinstance(w, SharedMemWindow)
+    finally:
+        w.close()
+    with pytest.raises(RuntimeError, match="init_process_group"):
         make_window("kvstore")
     assert isinstance(make_window("auto"), ThreadWindow)
     s = tdls.loop(50, "ss", P=2)
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match="needs a cross-process window"):
         s.execute(None, executor="processes")
+    with pytest.raises(ValueError, match="needs a cross-process window"):
+        jdls.loop(50, "ss", P=2).execute(None, executor="processes")
     # executor="sim" is ported: without costs= it raises the reference's error
     with pytest.raises(ValueError, match="needs per-iteration costs="):
         s.execute(None, executor="sim")

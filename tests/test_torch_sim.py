@@ -230,7 +230,9 @@ def test_sim_executor_needs_costs():
 
 
 def test_other_unported_paths_still_raise():
-    with pytest.raises(ValueError, match="item 9"):
+    # executor="processes" is ported (item 9): on a thread window it
+    # raises the reference's error
+    with pytest.raises(ValueError, match="needs a cross-process window"):
         tdls.loop(100, "gss", P=4).execute(None, executor="processes")
     # "auto" is ported (item 8); on the device runtime its sweep raises
     # as the reference's does
