@@ -90,14 +90,38 @@ protocol and applications through the port's public entry points:
      whose bands is held to its own plain version and whose assembled
      image is held to phase 3's image and its plain version; then the
      window's RMW latency and contention at P = 1, 2, 4, 8, and one run's
-     trace calibrated with the measured ``o_rma``.
+     trace calibrated with the measured ``o_rma``;
+ 12. (run after 8) the model plane's decode paths at full width, one
+     model at a time (random weights from seed 0; f32, then cast to the
+     config's bf16):
+     tinyllama-1.1b (22 layers; 4 prompts of 512 tokens, 32 greedy tokens,
+     also through ``Engine(backend="pallas").generate``), h2o-danube-3-4b
+     (24 layers, SWA 4096, head dim 120; 2 prompts of 4,608 tokens, so
+     the prefill takes the ring, and 16 steps through it), zamba2-2.7b
+     (54 mamba layers, 9 shared-block calls; 2 x 1024, 16 steps, the
+     engine), qwen3-moe-235b-a22b (full width, 2 of 94 layers: the card's
+     memory; 2 x 120 and 8 steps, dropless, timed at 4 x 512 where
+     capacity drops pairs), seamless-m4t-medium (12 + 12 layers; 4
+     sources of 1,024 stub frames, 240-token targets, 16 steps, the
+     engine) and internvl2-26b (full width, 12 of 48 layers: the
+     script's time; 256 stub prefix embeddings + 248 tokens, 8 steps).
+     Each prefill and greedy decode step through ``api`` is held to one
+     forward over the prompt and the generated tokens (f32: the
+     reference's decode bar, atol = rtol = 2e-3), the two backends'
+     forwards to each other (f32: 1e-3 of max |logit|), bf16 to bars set
+     from sound runs; the static attention kernel must run once per
+     uncached attention call and the SSD scan once per mamba layer of a
+     forward or prefill, and never in a decode step.  Then both kernels
+     at the geometries these models give them (head dims 80, 120 with
+     the window, 64, 64 non-causal, 128; the scan at 80 heads, state 64)
+     against their plain versions, timed beside SDPA and their bounds.
 
 The launch counts are zeroed just before each path (2-5, 6, 7, 8, 10's run
-of the selected technique, and 11, whose worker processes count their own
-launches into shared memory) and read just after.  Every kernel is
-then held against its plain PyTorch version on the same inputs, every
-schedule against the host plan, the two model
-backends against each other, and each kernel is timed with CUDA events
+of the selected technique, 11, whose worker processes count their own
+launches into shared memory, and each model of 12) and read just after.
+Every kernel is then held against its plain PyTorch version on the same
+inputs, every schedule against the host plan, the two model backends
+against each other, and each kernel is timed with CUDA events
 beside its plain version, its bound and, for attention, PyTorch's
 ``scaled_dot_product_attention`` (a yardstick only; the port never calls
 it).  The script exits non-zero without a result line when there is no
@@ -702,6 +726,18 @@ def forward_times(params, cfg, batch, backend, what):
     from repro_torch.models import api
 
     out = api.forward(params, cfg, batch, backend=backend)
+    event_and_wall_ms(lambda: api.forward(params, cfg, batch, backend=backend),
+                      f"{what} forward ({backend})", warmup=False)
+    return out
+
+
+def event_and_wall_ms(fn, what, warmup=True):
+    """(CUDA-event ms, wall ms) of ``fn()``, medians of REPS after a
+    warm-up unless ``warmup`` is false, printed as ``time <what>``."""
+    import torch
+
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     dev_ms, wall_ms = [], []
     for _ in range(REPS):
@@ -709,13 +745,13 @@ def forward_times(params, cfg, batch, backend, what):
         b = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         a.record()
-        api.forward(params, cfg, batch, backend=backend)
+        fn()
         b.record()
         b.synchronize()
         wall_ms.append((time.perf_counter() - t0) * 1e3)
         dev_ms.append(a.elapsed_time(b))
-    print(f"time {what} forward ({backend}): {statistics.median(dev_ms)!r} ms CUDA "
-          f"events, {statistics.median(wall_ms)!r} ms wall")
+    out = (statistics.median(dev_ms), statistics.median(wall_ms))
+    print(f"time {what}: {out[0]!r} ms CUDA events, {out[1]!r} ms wall")
     return out
 
 
@@ -1678,6 +1714,319 @@ def processes_path(image, plain_image, smi: str) -> dict:
             "processes_parent_launches": parent}
 
 
+# phase 12: the model plane's decode paths at full width.  name -> (layers
+# kept, None for all; B; prompt tokens; new tokens; timing batch (B, T)).
+# qwen3-moe keeps 2 of 94 layers (one layer is 2.45 B parameters, 9.7 GB in
+# f32: the card's memory), internvl2-26b 12 of 48 (the script's time).  The
+# qwen3 checks run at dropless sizes (at most 256 tokens a call); its times
+# at 4 x 512, where capacity drops are real.
+PLANE = {
+    "tinyllama-1.1b": (None, 4, 512, 32, (4, 512)),
+    "h2o-danube-3-4b": (None, 2, 4608, 16, (2, 4608)),
+    "zamba2-2.7b": (None, 2, 1024, 16, (2, 1024)),
+    "qwen3-moe-235b-a22b": (2, 2, 120, 8, (4, 512)),
+    "seamless-m4t-medium": (None, 4, 240, 16, (4, 240)),
+    "internvl2-26b": (12, 2, 248, 8, (2, 248)),
+}
+PLANE_ENGINE = ("tinyllama-1.1b", "zamba2-2.7b", "seamless-m4t-medium")
+PLANE_SRC = 1024  # seamless: stub source frames
+# f32: decode against the forward at tests/test_archs.py:94's bar (atol and
+# rtol 2e-3), the two backends within 1e-3 of max |logit|, greedy argmax
+# agreement >= 99.9 %
+PLANE_DECODE_TOL, PLANE_BACKEND_BAR, PLANE_ARGMAX = 2e-3, 1e-3, 0.999
+# bf16, of max |logit|: (decode against the forward, the two backends'
+# forwards), about twice the sound readings on an H100 80GB HBM3 at 700 W
+# (PERF.md, the model plane's findings): tinyllama 0.020 / 0.022, h2o
+# 0.019 / 0.026, seamless 0.016 / 0.018, internvl2 0.015 / 0.017; zamba2
+# 0.40 / 0.62 and qwen3-moe 0.19 / 0.24, where bf16 drifts with 54 random
+# layers as mamba2's does and a rounding reroutes a token to another
+# expert: f32 is their gate
+PLANE_BF16_BARS = {
+    "tinyllama-1.1b": (5e-2, 5e-2), "h2o-danube-3-4b": (5e-2, 5e-2),
+    "zamba2-2.7b": (0.8, 1.0), "qwen3-moe-235b-a22b": (0.4, 0.5),
+    "seamless-m4t-medium": (5e-2, 5e-2), "internvl2-26b": (5e-2, 5e-2),
+}
+
+
+def plane_greedy(params, cfg, batch, n_new, dev):
+    """Prefill ``batch`` and decode ``n_new`` greedy tokens through the
+    port's entry points (backend "pallas").  Returns (tokens (B, n_new),
+    logits (B, n_new + 1, vocab): the prefill's and each step's, the
+    launches of the prefill and of the decode steps)."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.models import api
+
+    B, Tp = batch["tokens"].shape
+    prefix = batch["prefix_embeds"].shape[1] if "prefix_embeds" in batch else 0
+    src = batch["src_embeds"].shape[1] if cfg.is_encdec else None
+    cache = api.init_cache(cfg, B, prefix + Tp + n_new, src_len=src, device=dev)
+    before = dict(_build.LAUNCHES)
+    lg, cache = api.prefill(params, cfg, batch, cache, backend="pallas")
+    torch.cuda.synchronize()
+    pre = {k: _build.LAUNCHES[k] - before[k] for k in ("flash_attention", "ssd_scan")}
+    logits, gen = [lg], []
+    tok = lg.argmax(-1).int()
+    for _ in range(n_new):
+        gen.append(tok)
+        lg, cache = api.decode_step(params, cfg, tok, cache, backend="pallas")
+        logits.append(lg)
+        tok = lg.argmax(-1).int()
+    torch.cuda.synchronize()
+    dec = {k: _build.LAUNCHES[k] - before[k] - pre[k] for k in pre}
+    check(int(cache["pos"]) == prefix + Tp + n_new, f"{cfg.name}: cache position")
+    return torch.stack(gen, 1), torch.stack(logits, 1), pre, dec
+
+
+def plane_forward(params, cfg, batch, backend):
+    """(logits, the kernels' launches) of one ``api.forward``."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.models import api
+
+    before = dict(_build.LAUNCHES)
+    out = api.forward(params, cfg, batch, backend=backend)
+    torch.cuda.synchronize()
+    return out, {k: _build.LAUNCHES[k] - before[k] for k in ("flash_attention", "ssd_scan")}
+
+
+def plane_batch(cfg, B, T, dev, seed=0):
+    """Tokens (B, T) from ``seed`` and, by family, the frontend stub's
+    source (seamless: PLANE_SRC frames) or prefix (internvl2) on the card."""
+    import numpy as np
+
+    from repro_torch.models import api
+
+    batch = {"tokens": np.random.default_rng(seed).integers(0, cfg.vocab, (B, T))
+             .astype(np.int32)}
+    if cfg.is_encdec:
+        batch["src_embeds"] = api.frontend_stub_embeds(cfg, B, PLANE_SRC, seed, device=dev)
+    elif cfg.frontend == "vision":
+        batch["prefix_embeds"] = api.frontend_stub_embeds(cfg, B, cfg.n_prefix_tokens,
+                                                          seed, device=dev)
+    return batch
+
+
+def plane_model(name, dev, launches_out):
+    """One model of phase 12: f32 (decode against the forward, the two
+    backends, the engine) and then bf16 (the same, with bars set from
+    sound runs; times).  Appends the kernels' launches per call to
+    ``launches_out``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import api
+    from repro_torch.models.params import cast
+    from repro_torch.serve import Engine
+
+    layers, B, Tp, n_new, (tB, tT) = PLANE[name]
+    cfg = get_config(name)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t_model = time.perf_counter()
+    params = api.init_params(torch.Generator(device=dev).manual_seed(0), cfg32, device=dev)
+    batch = plane_batch(cfg32, B, Tp, dev)
+    prefix = cfg.n_prefix_tokens if cfg.frontend == "vision" else 0
+    # the expected launches of one forward (pallas) and one prefill: every
+    # uncached self-attention call (an enc-dec's encoder and decoder; the
+    # hybrid's shared block once a group), and an enc-dec prefill's encoder
+    attn_calls = (cfg.enc_layers + cfg.n_layers if cfg.is_encdec else
+                  cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else cfg.n_layers)
+    scans = cfg.n_layers if cfg.is_ssm else 0
+    want_fwd = {"flash_attention": attn_calls, "ssd_scan": scans}
+    want_pre = {"flash_attention": cfg.enc_layers if cfg.is_encdec else 0, "ssd_scan": scans}
+    zero = {"flash_attention": 0, "ssd_scan": 0}
+    counts = {}
+
+    readings = {}
+    for dtype in ("f32", "bf16"):
+        c = cfg32 if dtype == "f32" else cfg
+        if dtype == "bf16":
+            params = cast(params, torch.bfloat16)  # the config's dtype; f32 leaves stay
+            batch = {k: v.to(torch.bfloat16) if isinstance(v, torch.Tensor) else v
+                     for k, v in batch.items()}
+        gen, logits, pre, dec = plane_greedy(params, c, batch, n_new, dev)
+        full = dict(batch, tokens=np.concatenate([batch["tokens"], gen.cpu().numpy()], 1))
+        fwd, fl = plane_forward(params, c, full, "pallas")
+        xla, xl = plane_forward(params, c, full, "xla")
+        check(fl == want_fwd, f"{name} {dtype}: forward launches {fl} == {want_fwd}")
+        check(pre == want_pre, f"{name} {dtype}: prefill launches {pre} == {want_pre}")
+        check(dec == zero and xl == zero, f"{name} {dtype}: decode {dec} and xla forward "
+              f"{xl} launch nothing")
+        counts[dtype] = {"forward": fl, "prefill": pre, "decode": dec}
+        T_all = prefix + Tp + n_new
+        check(tuple(fwd.shape) == (B, T_all, cfg.vocab), f"{name} {dtype}: forward shape")
+        for what, t in (("pallas", fwd), ("xla", xla), ("decode", logits)):
+            check(bool(t.isfinite().all()), f"{name} {dtype}: {what} logits finite")
+        # prefill (position prefix+Tp-1) and every step against the forward
+        ref = fwd[:, prefix + Tp - 1:]
+        top = float(fwd.abs().max())
+        d_dec = float((logits - ref).abs().max())
+        d_back = float((fwd - xla).abs().max())
+        agree_dec = float((logits.argmax(-1) == ref.argmax(-1)).double().mean())
+        agree_back = float((fwd.argmax(-1) == xla.argmax(-1)).double().mean())
+        readings[dtype] = {"decode": d_dec / top, "backends": d_back / top}
+        print(f"plane {name} {dtype}: {cfg.n_layers} layers, B={B}, prompt {Tp}"
+              f"{f' + {prefix} prefix' if prefix else ''}"
+              f"{f', source {PLANE_SRC}' if cfg.is_encdec else ''}, {n_new} new tokens; "
+              f"launches {counts[dtype]}; max |decode - forward| {d_dec!r} = "
+              f"{d_dec / top!r} of max |logit| {top!r} over the prefill and {n_new} steps; "
+              f"max |pallas - xla| {d_back!r} = {d_back / top!r}; argmax agrees: "
+              f"decode {agree_dec!r}, backends {agree_back!r}")
+        if dtype == "f32":
+            ok, _ = close(logits, ref, PLANE_DECODE_TOL, PLANE_DECODE_TOL)
+            check(ok, f"{name} f32: decode == forward within atol = rtol = {PLANE_DECODE_TOL}")
+            check(d_back <= PLANE_BACKEND_BAR * top,
+                  f"{name} f32: backends within {PLANE_BACKEND_BAR} of max |logit|")
+            check(agree_dec >= PLANE_ARGMAX and agree_back >= PLANE_ARGMAX,
+                  f"{name} f32: greedy argmax agrees on >= {PLANE_ARGMAX}")
+        else:
+            for k, bar in zip(("decode", "backends"), PLANE_BF16_BARS[name]):
+                check(readings["bf16"][k] <= bar,
+                      f"{name} bf16: {k} within {bar} of max |logit| "
+                      f"({readings['bf16'][k]!r})")
+        if name in PLANE_ENGINE:
+            prompts = batch["tokens"]
+            eng = Engine(c, params, backend="pallas").generate(prompts, max_new=n_new)
+            if cfg.is_encdec:  # the engine's source: Tp stub frames, seed 0
+                stub = dict(batch, src_embeds=api.frontend_stub_embeds(c, B, Tp,
+                                                                       device=dev))
+                gen = plane_greedy(params, c, stub, n_new, dev)[0]
+            check(np.array_equal(eng, gen.cpu().numpy()),
+                  f"{name} {dtype}: Engine.generate == the stepwise greedy tokens")
+        del fwd, xla, logits, full
+        if dtype == "f32":
+            continue
+        # times (bf16, the config's dtype)
+        tbatch = plane_batch(c, tB, tT, dev, seed=1)
+        tcache = api.init_cache(c, tB, prefix + tT + 1,
+                                src_len=PLANE_SRC if cfg.is_encdec else None, device=dev)
+        shape = f"B={tB} x T={tT}{f' + {prefix} prefix' if prefix else ''}"
+        event_and_wall_ms(lambda: api.forward(params, c, tbatch, backend="pallas"),
+                          f"plane {name} bf16 forward (pallas) {shape}")
+        event_and_wall_ms(lambda: api.prefill(params, c, tbatch, tcache, backend="pallas"),
+                          f"plane {name} bf16 prefill {shape}")
+        _, tcache = api.prefill(params, c, tbatch, tcache, backend="pallas")
+        tok = torch.zeros(tB, dtype=torch.int32, device=dev)
+        event_and_wall_ms(lambda: api.decode_step(params, c, tok, tcache, backend="pallas"),
+                          f"plane {name} bf16 decode step B={tB}")
+        del tcache
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"plane {name}: peak memory {peak!r} GiB; {time.perf_counter() - t_model:.1f} s "
+          f"wall; launches {dict(_build.LAUNCHES)}")
+    launches_out[name] = {"f32": counts["f32"], "bf16": counts["bf16"]}
+    del params, batch
+    torch.cuda.empty_cache()
+    return readings
+
+
+def plane_kernels(dev):
+    """Phase 12, the kernels at the geometries its models give them, held
+    against their plain versions (f32 at the reference's bars, bf16 at
+    phase 7's and phase 8's) and timed beside them, SDPA and the bound."""
+    import torch
+
+    from repro_torch.kernels import flash_attention, ssd_scan
+    from repro_torch.kernels.flash_attention.kernel import _flash_plain
+    from repro_torch.kernels.ssd_scan.kernel import _ssd_plain
+
+    def pairs(T, causal, window):
+        if not causal:
+            return T * T
+        return sum(min(r + 1, window or T) for r in range(T))
+
+    once = {"reps": 1, "warmup": False}
+    g = torch.Generator(device=dev).manual_seed(0)
+    # (caller, B, H, Hkv, T, D, causal, window)
+    for who, B, H, Hkv, T, D, causal, window in (
+            ("zamba2-2.7b shared block", 2, 32, 32, 1040, 80, True, None),
+            ("h2o-danube-3-4b", 2, 32, 8, 4624, 120, True, 4096),
+            ("qwen3-moe-235b-a22b", 2, 64, 4, 128, 64, True, None),
+            ("seamless-m4t-medium encoder", 4, 16, 16, PLANE_SRC, 64, False, None),
+            ("internvl2-26b", 2, 48, 8, 512, 128, True, None)):
+        q = torch.randn((B, H, T, D), generator=g, device=dev)
+        k, v = (torch.randn((B, Hkv, T, D), generator=g, device=dev) for _ in range(2))
+        kw = {"causal": causal, "window": window}
+        for dt, rate in ((torch.float32, F32_FLOPS_PER_S), (torch.bfloat16, BF16_FLOPS_PER_S)):
+            args = tuple(t.to(dt) for t in (q, k, v))
+            out = flash_attention(*args, **kw)
+            plain = _flash_plain(*args, **kw)
+            if dt == torch.float32:
+                ok, d = close(out, plain, 2e-5, 2e-5)
+                bar = "2e-5"
+            else:
+                ok, d, slack = bf16_close(out, plain)
+                bar = f"{BF16_BAR} and {BF16_ATOL} + {BF16_RTOL} |plain|; slack {slack!r}"
+            check(ok and bool(out.isfinite().all()),
+                  f"flash_attention {who} {dt}: kernel == plain within {bar} (max {d!r})")
+            ms = cuda_ms(lambda: flash_attention(*args, **kw))
+            plain_ms = cuda_ms(lambda: _flash_plain(*args, **kw), **once)
+            mask = None
+            if window is not None:
+                r = torch.arange(T, device=dev)
+                mask = (r[None, :] <= r[:, None]) & (r[None, :] > r[:, None] - window)
+            lib = sdpa_ms(*args, attn_mask=mask, is_causal=causal and mask is None)
+            ops = 4 * D * B * H * pairs(T, causal, window)
+            b = bound(args[0].element_size() * 2 * (args[0].numel() + args[1].numel()),
+                      ops, rate)
+            print(f"plane kernel flash_attention {who} {str(dt)[6:]} q {tuple(q.shape)} "
+                  f"Hkv={Hkv} {kw}: max |kernel - plain| {d!r} (bar {bar}); {ms!r} ms "
+                  f"({ops / ms / 1e9!r} TFLOP/s); plain {plain_ms!r} ms; sdpa {lib!r} ms; "
+                  f"bound {b[0]!r} ms ({b[1]})")
+            del out, plain
+    # the SSD scan at zamba2-2.7b's 80 heads of 64, state 64 (B=2 x 1040)
+    H, Dh, S, L = 80, 64, 64, SSD_CHUNK
+    for dt, rate in ((torch.float32, F32_FLOPS_PER_S), (torch.bfloat16, BF16_FLOPS_PER_S)):
+        args = ssd_inputs(2, 1040, H, Dh, S, dev, dt)
+        y = ssd_scan(*args, chunk=L)
+        plain = _ssd_plain(*args, chunk=L)
+        if dt == torch.float32:
+            ok, d = close(y, plain, 2e-4, 2e-4)
+            bar = "2e-4"
+        else:
+            ok, d, slack = ssd_bf16_close(y, plain)
+            bar = f"{BF16_BAR} + {BF16_RTOL} |plain|, slack <= {BF16_ATOL}; slack {slack!r}"
+        check(ok and bool(y.isfinite().all()),
+              f"ssd_scan zamba2 {dt}: kernel == plain within {bar} (max {d!r})")
+        ms = cuda_ms(lambda: ssd_scan(*args, chunk=L))
+        plain_ms = cuda_ms(lambda: _ssd_plain(*args, chunk=L), **once)
+        size = args[0].element_size()
+        nbytes = size * (2 * args[0].numel() + args[1].numel() + 2 * args[3].numel()) + 4 * H
+        flops = ssd_flops(2, 1040, H, Dh, S, L)
+        b = bound(nbytes, flops, rate)
+        print(f"plane kernel ssd_scan zamba2-2.7b {str(dt)[6:]} x {tuple(args[0].shape)} "
+              f"S={S}: max |kernel - plain| {d!r} (bar {bar}); {ms!r} ms; plain "
+              f"{plain_ms!r} ms; bound {b[0]!r} ms ({b[1]})")
+
+
+def model_plane_path(dev):
+    """Phase 12: every family's decode path at full width -- tinyllama-1.1b
+    (dense), h2o-danube-3-4b (SWA ring), zamba2-2.7b (hybrid), qwen3-moe
+    (2 of 94 layers), seamless-m4t-medium (enc-dec), internvl2-26b (VLM
+    prefix, 12 of 48 layers) -- through ``api`` and ``Engine``, then the
+    kernels at the geometries these models give them.  Returns each
+    model's launches per call of the two kernels."""
+    t_phase = time.perf_counter()
+    launches, readings = {}, {}
+    for name in PLANE:
+        readings[name] = plane_model(name, dev, launches)
+    print(f"plane bf16 readings (decode, backends) of max |logit| beside their bars: "
+          f"{ {n: ((r['bf16']['decode'], r['bf16']['backends']), PLANE_BF16_BARS[n]) for n, r in readings.items()} !r}")
+    plane_kernels(dev)
+    print(f"plane phase: {time.perf_counter() - t_phase:.1f} s wall")
+    return launches
+
+
 def main() -> int:
     root = Path(__file__).resolve().parent
     if not (root / "src" / "repro_torch" / "csrc").is_dir():
@@ -1987,6 +2336,13 @@ def main() -> int:
     t_ssm = time.perf_counter()
     rows.append(ssm_model_path(dev))
     print(f"ssm phase: {time.perf_counter() - t_ssm:.1f} s wall")
+    # -- 12. the model plane's decode paths at full width -------------------
+    plane = model_plane_path(dev)
+    for r in rows:
+        if r["name"] in ("flash_attention", "ssd_scan"):
+            r["launches_model_plane"] = {
+                m: {call: n[r["name"]] for call, n in v["bf16"].items()}
+                for m, v in plane.items()}
     # -- 9. the DES (no kernel: the fast path's batch core on the card) -----
     des_path()
     # -- 10. replay: device traces, technique="auto", PSIA, the CLI --------

@@ -1,4 +1,5 @@
-"""The model plane: the dense decoder-only LM (the teacher-forced forward)
-and the SSM family (forward, decode cache, prefill and decode); KV caches,
-MoE, hybrid, enc-dec and training are queued in ROADMAP.md."""
-from . import api, layers, lm, params, ssm  # noqa: F401
+"""The model plane: every family's init, teacher-forced forward, decode
+cache, prefill and decode (dense with SWA, MoE, SSM, hybrid, VLM prefix,
+enc-dec); training (the chunked attention's backward, remat, then
+``train``) is queued in ROADMAP.md."""
+from . import api, encdec, layers, lm, params, ssm  # noqa: F401

@@ -1,9 +1,10 @@
-"""Transformer building blocks of the dense, cache-free path: RMSNorm, RoPE,
-GQA attention and the gated MLP.
+"""Transformer building blocks: RMSNorm, RoPE, GQA attention (causal,
+sliding-window, cross, with an append or ring-buffer KV cache), the gated
+MLP and the top-k capacity MoE.
 
-Port of the dense, no-cache parts of ``repro.models.layers``.  Params are
-plain dicts of tensors in the JAX package's ``x @ W`` orientation, so each
-weight has the reference's shape.
+Port of ``repro.models.layers``.  Params are plain dicts of tensors in the
+JAX package's ``x @ W`` orientation, so each weight has the reference's
+shape.
 
 Attention keeps the JAX package's two backend names, so a reader finds the
 counterpart:
@@ -17,9 +18,20 @@ counterpart:
                     (``repro_torch.kernels.flash_attention``): the CUDA
                     kernel on the card, its plain version on the CPU.
 
+As in the reference, a call with a KV cache or cross-attention keys takes
+the dense path whatever the backend: a cached call never reaches the
+kernel.  The cache's position is a 0-d tensor and its slots are written by
+tensor index (``index_copy``), so a layer makes no host sync; an append
+past the cache's end lands at ``S_c - T``, where the reference's
+``dynamic_update_slice`` clamps it.
+
+The MoE dispatch runs as one group (``G = 1``): the reference's
+group-local dispatch only differs under a sharding context, which is not
+ported (ROADMAP.md section 1, item 13).
+
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP.md
-item: KV caches and cross-attention, the chunked ``custom_vjp`` path that
-``"xla"`` takes for long sequences, MoE, and sharding (``ShardCtx``).
+item: the chunked ``custom_vjp`` attention that ``"xla"`` takes for long
+sequences (item 11.6), including ``attention_with_kv``'s.
 """
 from __future__ import annotations
 
@@ -34,7 +46,7 @@ NEG_INF = -1e30
 #: dense path for its chunked online-softmax path (4096 for d_model >= 8192)
 CHUNKED_ATTN_THRESHOLD = 8192
 
-ROADMAP_ITEM = "ROADMAP.md section 1, item 11 (model plane)"
+CHUNKED_ITEM = "ROADMAP.md section 1, item 11.6 (the chunked attention)"
 
 
 def dtype_of(name: str):
@@ -106,7 +118,7 @@ def apply_rope(x, cos, sin):
 
 
 # ---------------------------------------------------------------------------
-# Attention (GQA, causal / SWA)
+# Attention (GQA, causal / SWA / cross, optional KV cache)
 # ---------------------------------------------------------------------------
 
 
@@ -120,11 +132,15 @@ def attention_init(gen, cfg, dtype, device=None):
     }
 
 
-def _sdpa_xla(q, k, v, *, causal, window):
+def _sdpa_xla(q, k, v, *, causal, window, row_pos=None, col_pos=None):
     """q (B,Tq,H,D), k/v (B,Tk,Hkv,D).  Dense masked attention, f32 accum.
 
-    The reference's einsums take bf16 operands with f32 accumulation; here
-    the operands are widened to f32 first, which is exact for the products.
+    ``row_pos``/``col_pos`` are the *absolute* token positions of queries
+    and keys (defaults: 0..Tq-1 / 0..Tk-1).  Ring-buffer caches pass
+    permuted / partially-negative ``col_pos`` (negative = slot never
+    written).  The reference's einsums take bf16 operands with f32
+    accumulation; here the operands are widened to f32 first, which is
+    exact for the products.
     """
     B, Tq, H, D = q.shape
     Tk, Hkv = k.shape[1], k.shape[2]
@@ -133,8 +149,8 @@ def _sdpa_xla(q, k, v, *, causal, window):
     # (B, Hkv, group, Tq, Tk)
     s = torch.einsum("btkgd,bskd->bkgts",
                      qf.reshape(B, Tq, Hkv, group, D).float(), k.float())
-    rows = torch.arange(Tq, device=q.device)[:, None]
-    cols = torch.arange(Tk, device=q.device)[None, :]
+    rows = (torch.arange(Tq, device=q.device) if row_pos is None else row_pos)[:, None]
+    cols = (torch.arange(Tk, device=q.device) if col_pos is None else col_pos)[None, :]
     mask = cols >= 0
     if causal:
         mask = mask & (cols <= rows)
@@ -146,6 +162,31 @@ def _sdpa_xla(q, k, v, *, causal, window):
     return o.reshape(B, Tq, H, D).to(q.dtype)
 
 
+def _chunked(what: str, n_keys: int):
+    return NotImplementedError(
+        f"{what}: the chunked attention the 'xla' backend takes at {n_keys} keys "
+        f"is not ported yet ({CHUNKED_ITEM}); use backend='pallas'")
+
+
+def cache_slots(pos, T: int, S_c: int, *, ring: bool):
+    """(the slots a call of T tokens at position ``pos`` writes its last
+    min(T, S_c) keys to, the absolute position each of the S_c slots holds
+    after it, negative for a slot never written).
+
+    The append cache (``ring`` false) writes T slots from ``pos``, clamped
+    to [0, S_c - T] as ``dynamic_update_slice`` clamps its start; the ring
+    puts absolute position a in slot a % S_c.  Tensor ``%`` is floor
+    modulo, as jnp's (``torch.fmod`` is not).
+    """
+    slots = torch.arange(S_c, device=pos.device)
+    if not ring:
+        idx = pos.clamp(0, S_c - T) + torch.arange(T, device=pos.device)
+        return idx, torch.where(slots < pos + T, slots, -1)
+    tail = min(T, S_c)
+    idx = (pos + T - tail + torch.arange(tail, device=pos.device)) % S_c
+    return idx, (pos + T - 1) - ((pos + T - 1 - slots) % S_c)
+
+
 def attention_block(
     params,
     x,  # (B, T, d)
@@ -153,43 +194,83 @@ def attention_block(
     *,
     positions=None,  # (T,) absolute positions for RoPE
     causal: bool = True,
-    kv_cache=None,
-    cache_pos=None,
-    xattn_kv=None,
+    kv_cache=None,  # {"k","v": (B,S,Hkv,hd)}
+    cache_pos=None,  # 0-d tensor: current length of the cache
+    xattn_kv=None,  # (B, S_src, d) encoder output for cross-attention
     backend: str = "xla",
 ):
-    """Returns (out (B,T,d), None): the cache slot of the reference's
-    signature, which this port does not fill yet."""
-    if kv_cache is not None or cache_pos is not None or xattn_kv is not None:
-        raise NotImplementedError(
-            f"KV caches and cross-attention are not ported yet ({ROADMAP_ITEM})")
+    """Returns (out (B,T,d), updated_cache | None)."""
     if backend not in ("xla", "pallas"):
         raise ValueError(f"backend must be 'xla' or 'pallas', got {backend!r}")
     B, T, d = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
 
     q = (x @ params["wq"]).reshape(B, T, H, hd)
-    k = (x @ params["wk"]).reshape(B, T, Hkv, hd)
-    v = (x @ params["wv"]).reshape(B, T, Hkv, hd)
-    if positions is None:
-        positions = torch.arange(T, device=x.device)
-    cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    kv_src = x if xattn_kv is None else xattn_kv
+    k = (kv_src @ params["wk"]).reshape(B, kv_src.shape[1], Hkv, hd)
+    v = (kv_src @ params["wv"]).reshape(B, kv_src.shape[1], Hkv, hd)
+    if xattn_kv is None:  # RoPE only for self-attention
+        if positions is None:
+            positions = torch.arange(T, device=x.device)
+        cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
 
-    if backend == "pallas":
+    new_cache = None
+    row_pos = col_pos = None
+    if kv_cache is not None:
+        pos = torch.as_tensor(cache_pos, device=x.device)
+        S_c = kv_cache["k"].shape[1]
+        tail = min(T, S_c)  # only the last S_c tokens can survive in a ring
+        idx, col_pos = cache_slots(pos, T, S_c, ring=tail < T or cfg.window is not None)
+        # new tensors: the cache passed in is not modified
+        ck, cv = (kv_cache[n].index_copy(1, idx, t[:, T - tail:].to(kv_cache[n].dtype))
+                  for n, t in (("k", k), ("v", v)))
+        new_cache = {"k": ck, "v": cv}
+        if T > 1:
+            # prefill: attend over this call's own keys (banded/causal), as
+            # the reference does; it assumes the prefill starts at pos = 0
+            col_pos = None
+        else:
+            k, v = ck, cv
+        row_pos = pos + torch.arange(T, device=x.device)
+
+    if backend == "pallas" and kv_cache is None and xattn_kv is None:
         o = flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=causal, window=cfg.window,
         ).transpose(1, 2)
     else:
-        if T > 1 and T >= (4096 if cfg.d_model >= 8192 else CHUNKED_ATTN_THRESHOLD):
-            raise NotImplementedError(
-                f"the chunked attention the 'xla' backend takes at T={T} is "
-                f"not ported yet ({ROADMAP_ITEM}); use backend='pallas'")
-        o = _sdpa_xla(q, k, v, causal=causal, window=cfg.window)
+        if (T > 1 and col_pos is None
+                and k.shape[1] >= (4096 if cfg.d_model >= 8192 else CHUNKED_ATTN_THRESHOLD)):
+            raise _chunked("attention_block", k.shape[1])
+        o = _sdpa_xla(
+            q, k, v,
+            causal=causal and xattn_kv is None,
+            window=cfg.window if xattn_kv is None else None,
+            row_pos=row_pos, col_pos=col_pos,
+        )
     out = o.reshape(B, T, H * hd) @ params["wo"]
-    return out, None
+    return out, new_cache
+
+
+def project_kv(params, src, cfg):
+    """Precompute cross-attention K/V from encoder output (no RoPE)."""
+    B, S, _ = src.shape
+    k = (src @ params["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    v = (src @ params["wv"]).reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    return k, v
+
+
+def attention_with_kv(params, x, k, v, cfg):
+    """Cross-attention against precomputed K/V (decode-time path)."""
+    B, T, _ = x.shape
+    H, hd = cfg.n_heads, cfg.hd
+    q = (x @ params["wq"]).reshape(B, T, H, hd)
+    if T > 1 and k.shape[1] >= CHUNKED_ATTN_THRESHOLD:
+        raise _chunked("attention_with_kv", k.shape[1])
+    o = _sdpa_xla(q, k, v, causal=False, window=None)
+    return o.reshape(B, T, H * hd) @ params["wo"]
 
 
 # ---------------------------------------------------------------------------
@@ -208,3 +289,90 @@ def mlp_init(gen, d, ff, dtype, device=None):
 def mlp_block(params, x):
     h = silu(x @ params["wg"]) * (x @ params["wu"])
     return h @ params["wd"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (top-k routing, capacity-based)
+# ---------------------------------------------------------------------------
+
+#: MoE leaves the reference keeps in f32 whatever the model's dtype
+MOE_F32_LEAVES = ("router",)
+
+
+def moe_init(gen, cfg, dtype, device=None):
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    # the expert leaves' fan-in is their leading axis, E, as in the reference
+    p = {
+        "router": dense_init(gen, (d, E), dtype=torch.float32, device=device),
+        "wg": dense_init(gen, (E, d, ff), dtype=dtype, device=device),
+        "wu": dense_init(gen, (E, d, ff), dtype=dtype, device=device),
+        "wd": dense_init(gen, (E, ff, d), dtype=dtype, device=device),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = mlp_init(gen, d, cfg.d_ff * cfg.n_shared_experts, dtype, device)
+    return p
+
+
+def top_k(x, k: int):
+    """(values, indices) of the ``k`` largest entries of the last axis, in
+    descending order, ties to the lower index (``jax.lax.top_k``'s order;
+    ``torch.topk`` promises none): a stable sort, then the first ``k``."""
+    values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], indices[..., :k]
+
+
+def moe_capacity(cfg, n: int) -> int:
+    """Slots per expert for ``n`` tokens: cf*K*n/E, floored dropless at
+    min(n, 256) tokens (Python's ``round``, as the reference's)."""
+    return int(max(1, round(cfg.capacity_factor * cfg.top_k * n / cfg.n_experts),
+                   min(n, 256)))
+
+
+def moe_block(params, x, cfg):
+    """Top-k capacity MoE, the reference's dispatch as one group.
+
+    Every (token, choice) pair in token-major order takes the next slot of
+    its expert; pairs past the capacity ``C`` are dropped (their weight is
+    0), and that order decides which.  The experts run on their (E, C, d)
+    slot tables in the model's dtype; each pair's output is weighted and
+    summed over its K choices.
+    """
+    B, T, d = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    n = B * T
+    xg = x.reshape(n, d)
+
+    gates = torch.softmax(xg.float() @ params["router"], dim=-1)  # (n, E) f32
+    top_w, top_e = top_k(gates, K)  # (n, K)
+    top_w = top_w / top_w.sum(-1, keepdim=True).clamp(min=1e-9)
+
+    C = moe_capacity(cfg, n)
+    flat_e = top_e.reshape(n * K)
+    onehot = F.one_hot(flat_e, E)  # (n*K, E)
+    # position of each pair in its expert's queue (token-major order)
+    pos_in_e = torch.cumsum(onehot, dim=0).gather(1, flat_e[:, None])[:, 0] - 1
+    keep = pos_in_e < C
+    # a dropped pair goes to the spare last index and is cut away: dropped,
+    # never clipped into a real slot
+    slot_of_pair = torch.where(keep, flat_e * C + pos_in_e, E * C)
+
+    # slot table: token row n = empty (points at the pad row)
+    tok_ids = torch.arange(n, device=x.device).repeat_interleave(K)
+    slot_tok = torch.full((E * C + 1,), n, dtype=torch.long, device=x.device)
+    slot_tok = slot_tok.scatter(0, slot_of_pair, tok_ids)[:E * C]
+
+    xpad = torch.cat([xg, xg.new_zeros((1, d))])
+    xe = xpad[slot_tok].reshape(E, C, d)
+    h = silu(torch.matmul(xe, params["wg"])) * torch.matmul(xe, params["wu"])
+    ye = torch.matmul(h, params["wd"]).reshape(E * C, d)  # (E*C, d)
+
+    # combine: each pair's slot output, weighted, summed over its K choices
+    w_flat = torch.where(keep, top_w.reshape(n * K), 0.0)
+    ye_pad = torch.cat([ye, ye.new_zeros((1, d))])
+    y_pairs = ye_pad[slot_of_pair] * w_flat[:, None].to(ye.dtype)
+    y = y_pairs.reshape(n, K, d).sum(dim=1)
+
+    out = y.reshape(B, T, d).to(x.dtype)
+    if cfg.n_shared_experts:
+        out = out + mlp_block(params["shared"], x)
+    return out

@@ -1,21 +1,25 @@
-"""Decoder-only LM, dense and SSM families: init, the teacher-forced
-forward, and for the SSM family the decode cache, prefill and decode.
+"""Decoder-only LM covering the dense / MoE / SWA / SSM / hybrid /
+VLM-prefix families: init, the teacher-forced forward, the decode cache,
+prefill and decode.
 
-Port of the dense and SSM families of ``repro.models.lm``.  Params are a
-dict with the JAX package's keys; where the reference stacks the
-per-layer leaves on a leading ``n_layers`` axis
-(``params["layers"]["attn"]["wq"]`` of shape (L, d, H*hd)), the port keeps
-a list of per-layer dicts (``params["layers"][i]["attn"]["wq"]`` of shape
-(d, H*hd)) and runs them in a Python loop in place of the reference's
-scan.  Every weight keeps the ``x @ W`` orientation.  The cache keeps the
-reference's stacked layout ({"pos", "ssm": {"state" (L,B,H,S,P) f32,
+Port of ``repro.models.lm``.  Params are a dict with the JAX package's
+keys; where the reference stacks the per-layer leaves on a leading
+``n_layers`` axis (``params["layers"]["attn"]["wq"]`` of shape
+(L, d, H*hd)), the port keeps a list of per-layer dicts
+(``params["layers"][i]["attn"]["wq"]`` of shape (d, H*hd)) and runs them in
+a Python loop in place of the reference's scan.  Every weight keeps the
+``x @ W`` orientation.  The cache keeps the reference's stacked layout
+({"pos", "kv": {"k", "v" (L,B,S,Hkv,hd)}, "ssm": {"state" (L,B,H,S,P) f32,
 "conv" (L,B,cw-1,di+2S)}}), and ``_step`` threads each layer's slice
-through the layer loop.
+through the layer loop and stacks the new slices.
 
-Not ported yet, raising ``NotImplementedError`` with their ROADMAP.md
-item: the dense family's KV caches (so its ``init_cache``, ``prefill`` and
-``decode_step``), the MoE, hybrid, enc-dec and VLM families, and the remat
-policies.
+Hybrid (zamba2-style) layout: the mamba backbone runs in groups of
+``attn_every`` layers; ONE shared transformer block (``params["shared"]``:
+attention + MLP) runs after each group, its weights reused across all
+groups, its KV caches per group.
+
+Not ported yet: the remat policies (the reference's ``remat=``; ROADMAP.md
+section 1, item 11.7).
 """
 from __future__ import annotations
 
@@ -25,28 +29,6 @@ from repro_torch.kernels import _build
 
 from . import layers as L
 from . import ssm as SSM
-
-#: the families whose forward is ported
-FORWARD_FAMILIES = ("dense", "ssm")
-
-
-def require_ported(cfg) -> None:
-    """Raise unless ``cfg``'s family has a ported forward."""
-    if cfg.family not in FORWARD_FAMILIES or cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            f"({L.ROADMAP_ITEM}); the port's model runs the dense and ssm "
-            "families")
-
-
-def require_cache(cfg) -> None:
-    """Raise unless ``cfg``'s family has a ported decode cache."""
-    require_ported(cfg)
-    if cfg.family != "ssm":
-        raise NotImplementedError(
-            f"{cfg.name}: KV caches (init_cache, prefill, decode_step of the "
-            f"{cfg.family} family) are not ported yet ({L.ROADMAP_ITEM}); the "
-            "port decodes the ssm family")
 
 
 def _generator(key, device) -> torch.Generator:
@@ -63,12 +45,26 @@ def _generator(key, device) -> torch.Generator:
 
 
 def _layer_init(gen, cfg, dtype, device):
-    """One layer of the stack for the family."""
-    if cfg.family == "ssm":
+    """One repeated-stack layer for the arch family."""
+    if cfg.family in ("dense", "vlm"):
+        return shared_block_init(gen, cfg, dtype, device)
+    if cfg.family == "moe":
+        return {
+            "ln1": L.rmsnorm_init(cfg.d_model, dtype, device),
+            "attn": L.attention_init(gen, cfg, dtype, device),
+            "ln2": L.rmsnorm_init(cfg.d_model, dtype, device),
+            "moe": L.moe_init(gen, cfg, dtype, device),
+        }
+    if cfg.family in ("ssm", "hybrid"):
         return {
             "ln": L.rmsnorm_init(cfg.d_model, dtype, device),
             "ssm": SSM.ssm_init(gen, cfg, dtype, device),
         }
+    raise ValueError(cfg.family)
+
+
+def shared_block_init(gen, cfg, dtype, device=None):
+    """A transformer block: attention + gated MLP with their pre-norms."""
     return {
         "ln1": L.rmsnorm_init(cfg.d_model, dtype, device),
         "attn": L.attention_init(gen, cfg, dtype, device),
@@ -81,7 +77,6 @@ def init_params(key, cfg, *, device=None):
     """Random params from ``key`` (a seed or a ``torch.Generator``) on
     ``device`` (default ``"cuda"``).  The draws cannot equal the JAX
     package's; ``params.params_from_numpy`` carries its weights across."""
-    require_ported(cfg)
     device = _build.target_device(device, "init_params")
     gen = _generator(key, device)
     dtype = L.dtype_of(cfg.dtype)
@@ -95,6 +90,10 @@ def init_params(key, cfg, *, device=None):
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(gen, (cfg.d_model, cfg.vocab),
                                          dtype=dtype, device=device)
+    if cfg.family == "hybrid":
+        if not (cfg.attn_every > 0 and cfg.n_layers % cfg.attn_every == 0):
+            raise ValueError("hybrid stack must be divisible into attn_every-sized groups")
+        params["shared"] = shared_block_init(gen, cfg, dtype, device)
     return params
 
 
@@ -103,15 +102,18 @@ def init_params(key, cfg, *, device=None):
 # ---------------------------------------------------------------------------
 
 
-def _tblock(p, h, cfg, *, positions, causal, backend):
-    """Transformer block: attn + mlp with pre-norms and residuals."""
-    a, _ = L.attention_block(
+def _tblock(p, h, cfg, *, positions, causal, kv=None, pos=None, backend):
+    """Transformer block: attn + (mlp | moe) with pre-norms and residuals."""
+    a, new_kv = L.attention_block(
         p["attn"], L.rmsnorm(h, p["ln1"], cfg.norm_eps), cfg,
-        positions=positions, causal=causal, backend=backend,
+        positions=positions, causal=causal, kv_cache=kv, cache_pos=pos,
+        backend=backend,
     )
     h = h + a
     hn = L.rmsnorm(h, p["ln2"], cfg.norm_eps)
-    return h + L.mlp_block(p["mlp"], hn)
+    if "moe" in p:
+        return h + L.moe_block(p["moe"], hn, cfg), new_kv
+    return h + L.mlp_block(p["mlp"], hn), new_kv
 
 
 def _ssm_layer(p, h, cfg, *, cache=None, backend):
@@ -122,17 +124,26 @@ def _ssm_layer(p, h, cfg, *, cache=None, backend):
     return h + o, new_cache
 
 
-def _embed(params, tokens, prefix_embeds):
-    if prefix_embeds is not None:
-        raise NotImplementedError(
-            f"prefix embeddings (VLM/audio frontends) are not ported yet ({L.ROADMAP_ITEM})")
+def _embed(params, tokens, prefix_embeds=None):
+    """Token embeddings, with the VLM/audio frontend's prefix embeddings
+    (B, Tp, d) in front when given."""
     embed = params["embed"]
-    return embed[torch.as_tensor(tokens, device=embed.device).long()]
+    h = embed[torch.as_tensor(tokens, device=embed.device).long()]
+    if prefix_embeds is not None:
+        prefix = torch.as_tensor(prefix_embeds, device=embed.device)
+        h = torch.cat([prefix.to(h.dtype), h], dim=1)
+    return h
 
 
 def _head(params, cfg, h):
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return h @ (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
+
+
+def _groups(cfg, layers):
+    """The hybrid's ssm layers in ``attn_every``-sized groups."""
+    ae = cfg.attn_every
+    return [layers[g * ae:(g + 1) * ae] for g in range(cfg.n_layers // ae)]
 
 
 # ---------------------------------------------------------------------------
@@ -142,16 +153,23 @@ def _head(params, cfg, h):
 
 def forward(params, cfg, tokens, *, prefix_embeds=None, backend: str = "xla",
             logits_f32: bool = True):
-    """Token logits (B, T, vocab) on the params' device."""
-    require_ported(cfg)
+    """Token logits (B, T(+Tp), vocab) on the params' device."""
     h = _embed(params, tokens, prefix_embeds)
-    if cfg.family == "ssm":
+    positions = torch.arange(h.shape[1], device=h.device)
+    if cfg.family in ("dense", "vlm", "moe"):
+        for lp in params["layers"]:
+            h, _ = _tblock(lp, h, cfg, positions=positions, causal=True, backend=backend)
+    elif cfg.family == "ssm":
         for lp in params["layers"]:
             h, _ = _ssm_layer(lp, h, cfg, backend=backend)
+    elif cfg.family == "hybrid":
+        for group in _groups(cfg, params["layers"]):
+            for lp in group:
+                h, _ = _ssm_layer(lp, h, cfg, backend=backend)
+            h, _ = _tblock(params["shared"], h, cfg, positions=positions, causal=True,
+                           backend=backend)
     else:
-        positions = torch.arange(h.shape[1], device=h.device)
-        for lp in params["layers"]:
-            h = _tblock(lp, h, cfg, positions=positions, causal=True, backend=backend)
+        raise ValueError(cfg.family)
     logits = _head(params, cfg, h)
     return logits.float() if logits_f32 else logits
 
@@ -163,52 +181,97 @@ def forward(params, cfg, tokens, *, prefix_embeds=None, backend: str = "xla",
 
 def init_cache(cfg, batch, max_len, dtype=None, *, device=None):
     """Stacked per-layer caches + a global position counter, on ``device``
-    (default ``"cuda"``).  An SSM cache does not grow with ``max_len``."""
-    require_cache(cfg)
+    (default ``"cuda"``).  Under SWA the KV cache is a ring of
+    min(max_len, window) slots; an SSM cache does not grow with
+    ``max_len``."""
     device = _build.target_device(device, "init_cache")
     dt = L.dtype_of(cfg.dtype) if dtype is None else dtype
-    return {
-        "pos": torch.zeros((), dtype=torch.int32, device=device),
-        "ssm": {
+
+    def kv(n, length):
+        shape = (n, batch, length, cfg.n_kv_heads, cfg.hd)
+        return {"k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device)}
+
+    cache = {"pos": torch.zeros((), dtype=torch.int32, device=device)}
+    if cfg.family in ("dense", "vlm", "moe"):
+        cache["kv"] = kv(cfg.n_layers, min(max_len, cfg.window) if cfg.window else max_len)
+    elif cfg.family in ("ssm", "hybrid"):
+        cache["ssm"] = {
             "state": torch.zeros(
                 (cfg.n_layers, batch, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim),
                 dtype=torch.float32, device=device),
             "conv": torch.zeros(
                 (cfg.n_layers, batch, cfg.ssm_conv - 1, cfg.d_inner + 2 * cfg.ssm_state),
                 dtype=dt, device=device),
-        },
-    }
+        }
+        if cfg.family == "hybrid":
+            cache["kv"] = kv(cfg.n_layers // cfg.attn_every, max_len)
+    else:
+        raise ValueError(cfg.family)
+    return cache
 
 
-def _step(params, cfg, h, cache, *, backend):
+def _kv_slice(cache, i):
+    return {"k": cache["kv"]["k"][i], "v": cache["kv"]["v"][i]}
+
+
+def _stack_kv(kvs):
+    return {"k": torch.stack([c["k"] for c in kvs]),
+            "v": torch.stack([c["v"] for c in kvs])}
+
+
+def _step(params, cfg, h, cache, *, positions, backend):
     """One full pass over the stack with caches; h (B, T, d).  Returns a
     new cache; the one passed in is not modified."""
-    states, convs = [], []
-    for i, lp in enumerate(params["layers"]):
-        c = {"state": cache["ssm"]["state"][i], "conv": cache["ssm"]["conv"][i]}
-        h, nc = _ssm_layer(lp, h, cfg, cache=c, backend=backend)
-        states.append(nc["state"])
-        convs.append(nc["conv"])
-    new_cache = {"pos": cache["pos"] + h.shape[1],
-                 "ssm": {"state": torch.stack(states), "conv": torch.stack(convs)}}
+    pos = cache["pos"]
+    new_cache = {"pos": pos + h.shape[1]}
+    if cfg.family in ("dense", "vlm", "moe"):
+        kvs = []
+        for i, lp in enumerate(params["layers"]):
+            h, nkv = _tblock(lp, h, cfg, positions=positions, causal=True,
+                             kv=_kv_slice(cache, i), pos=pos, backend=backend)
+            kvs.append(nkv)
+        new_cache["kv"] = _stack_kv(kvs)
+    elif cfg.family in ("ssm", "hybrid"):
+        groups = (_groups(cfg, params["layers"]) if cfg.family == "hybrid"
+                  else [params["layers"]])
+        states, convs, kvs = [], [], []
+        for g, group in enumerate(groups):
+            for lp in group:
+                i = len(states)
+                c = {"state": cache["ssm"]["state"][i], "conv": cache["ssm"]["conv"][i]}
+                h, nc = _ssm_layer(lp, h, cfg, cache=c, backend=backend)
+                states.append(nc["state"])
+                convs.append(nc["conv"])
+            if cfg.family == "hybrid":
+                h, nkv = _tblock(params["shared"], h, cfg, positions=positions,
+                                 causal=True, kv=_kv_slice(cache, g), pos=pos,
+                                 backend=backend)
+                kvs.append(nkv)
+        new_cache["ssm"] = {"state": torch.stack(states), "conv": torch.stack(convs)}
+        if kvs:
+            new_cache["kv"] = _stack_kv(kvs)
+    else:
+        raise ValueError(cfg.family)
     return h, new_cache
 
 
 def prefill(params, cfg, tokens, cache, *, prefix_embeds=None,
             backend: str = "xla"):
-    """Consume the prompt; returns (last-position logits (B, vocab) f32, cache)."""
-    require_cache(cfg)
+    """Consume the prompt (after the prefix embeddings, if any); returns
+    (last-position logits (B, vocab) f32, cache)."""
     h = _embed(params, tokens, prefix_embeds)
-    h, cache = _step(params, cfg, h, cache, backend=backend)
+    positions = cache["pos"] + torch.arange(h.shape[1], device=h.device)
+    h, cache = _step(params, cfg, h, cache, positions=positions, backend=backend)
     return _head(params, cfg, h[:, -1:])[:, 0].float(), cache
 
 
 def decode_step(params, cfg, token, cache, *, backend: str = "xla"):
     """One new token (B,) or (B,1); returns (logits (B, vocab) f32, cache)."""
-    require_cache(cfg)
     token = torch.as_tensor(token, device=params["embed"].device)
     if token.dim() == 1:
         token = token[:, None]
-    h = _embed(params, token, None)
-    h, cache = _step(params, cfg, h, cache, backend=backend)
+    h = _embed(params, token)
+    positions = cache["pos"] + torch.arange(1, device=h.device)
+    h, cache = _step(params, cfg, h, cache, positions=positions, backend=backend)
     return _head(params, cfg, h)[:, 0].float(), cache

@@ -13,14 +13,20 @@ queue.  GSS chunking admits large request groups early (deep queue) and
 small ones late (tail latency), which is the decreasing-chunk insight of
 the paper applied to admission control.
 
+``Engine.generate`` serves every family of the catalog: dense (SWA
+included), moe, ssm, hybrid, vlm and enc-dec, whose source is the
+frontend stub's embeddings (``api.frontend_stub_embeds``), as in the
+reference.
+
 Differences from the reference: ``Engine`` takes ``backend=`` ("xla" by
 default, the reference's behaviour) and passes it to ``prefill`` and
 ``decode_step``, so a server on the card can run the prefill through the
-SSD scan kernel (``backend="pallas"``).  It drops the reference's
-``max_len`` and ``batch_size``, which nothing reads (the cache is sized
-from the prompt and ``max_new``), and ``ctx`` (sharding is not ported).
-``ContinuousBatcher`` is the reference's, ``technique="auto"`` and
-``auto_seed`` included.
+SSD scan kernel (``backend="pallas"``; a cached attention call takes the
+dense path whatever the backend).  It drops the reference's ``max_len``
+and ``batch_size``, which nothing reads (the cache is sized from the
+prompt and ``max_new``), and ``ctx`` (sharding is not ported, ROADMAP.md
+section 1, item 13).  ``ContinuousBatcher`` is the reference's,
+``technique="auto"`` and ``auto_seed`` included.
 """
 from __future__ import annotations
 
@@ -58,9 +64,15 @@ class Engine:
         """prompts (B, Tp) -> tokens (B, max_new), greedy."""
         B, Tp = prompts.shape
         device = self.params["embed"].device
-        cache = api.init_cache(self.cfg, B, Tp + max_new, device=device)
-        logits, cache = api.prefill(self.params, self.cfg, {"tokens": prompts},
-                                    cache, backend=self.backend)
+        cache = api.init_cache(self.cfg, B, Tp + max_new,
+                               src_len=Tp if self.cfg.is_encdec else None,
+                               device=device)
+        batch = {"tokens": prompts}
+        if self.cfg.is_encdec:
+            batch["src_embeds"] = api.frontend_stub_embeds(self.cfg, B, Tp,
+                                                           device=device)
+        logits, cache = api.prefill(self.params, self.cfg, batch, cache,
+                                    backend=self.backend)
         out = []
         tok = logits.argmax(-1).int()
         for _ in range(max_new):

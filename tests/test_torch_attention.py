@@ -30,6 +30,7 @@ from repro_torch.kernels.flash_attention.persistent import (
     _persistent_plain, varlen_tile_costs)
 
 from _torch_support import require_card
+from _torch_support import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 @pytest.fixture(scope="module")

@@ -21,6 +21,7 @@ from repro_torch.kernels.mandelbrot.persistent import mandelbrot_tile_costs
 from repro_torch.kernels.mandelbrot.ref import geometry
 
 from _torch_support import cloud, require_card
+from _torch_support import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 @pytest.fixture(scope="module")

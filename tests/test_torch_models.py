@@ -18,12 +18,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import ARCHS, get_config
+from repro_torch.configs import get_config
 from repro_torch.kernels import _build
 from repro_torch.models import api, layers as L, lm
 from repro_torch.models.params import params_from_numpy
 
 from _torch_support import require_card
+from _torch_support import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 VARIANTS = {  # name -> (overrides of the reduced tinyllama, relative bar)
     "f32": ({}, 1e-4),
@@ -153,29 +154,16 @@ def test_attention_block_backends_agree(window):
     torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("name", sorted(n for n, c in ARCHS.items()
-                                       if c.family not in lm.FORWARD_FAMILIES))
-def test_other_families_name_their_roadmap_item(name):
-    cfg = ARCHS[name].reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        api.init_params(0, cfg, device="cpu")
-
-
 def test_unported_paths_raise():
     cfg = _cfg("f32")
     p = lm.init_params(0, cfg, device="cpu")
     x = torch.zeros(1, 4, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        L.attention_block(p["layers"][0]["attn"], x, cfg, kv_cache={})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        api.forward(p, cfg, {"tokens": np.zeros((1, 4), np.int32),
-                             "prefix_embeds": x})
     with pytest.raises(ValueError, match="backend"):
         L.attention_block(p["layers"][0]["attn"], x, cfg, backend="mosaic")
     # the chunked path of the "xla" backend starts at 8192 keys
     small = dataclasses.replace(cfg, d_model=8, n_heads=2, n_kv_heads=1, head_dim=4)
     sp = L.attention_init(torch.Generator().manual_seed(0), small, torch.float32)
-    with pytest.raises(NotImplementedError, match="chunked"):
+    with pytest.raises(NotImplementedError, match=r"chunked.*item 11\.6"):
         L.attention_block(sp, torch.zeros(1, 8192, 8), small, backend="xla")
 
 

@@ -1,7 +1,8 @@
 """Port parity, serving: repro_torch.serve vs repro.serve.
 
 ``Engine.generate`` on the reduced mamba2-370m (two layers) against the
-JAX engine's greedy tokens, with the port in both backends; generate
+JAX engine's greedy tokens, with the port in both backends, and likewise
+on the reduced dense, SWA, hybrid, MoE and enc-dec configs; generate
 against the stepwise prefill + greedy decode loop; batch independence; and
 ``ContinuousBatcher``'s schedule (``done_at``, the requests each process
 call saw, the timing fields) equal to the JAX batcher's for gss, fac2 and
@@ -22,7 +23,8 @@ from repro_torch.models import api
 from repro_torch.models.params import params_from_numpy
 from repro_torch.serve import ContinuousBatcher, Engine, Request
 
-from _torch_support import require_card
+from _torch_support import model_pair, require_card
+from _torch_support import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 def _cfg():
@@ -81,11 +83,53 @@ def test_generate_batch_independence(models):
     np.testing.assert_array_equal(solo[0], pair[0])
 
 
-def test_engine_dense_family_names_its_roadmap_item():
-    cfg = get_config("tinyllama-1.1b").reduced(n_layers=1)
+# ---------------------------------------------------------------------------
+# every family the engine serves: tokens equal to the JAX engine's (f32)
+# ---------------------------------------------------------------------------
+
+FAMILIES = {  # name -> (prompt length, max_new): the SWA prompt outgrows its window
+    "tinyllama-1.1b": (20, 5), "h2o-danube-3-4b": (70, 5), "zamba2-2.7b": (20, 5),
+    "qwen3-moe-235b-a22b": (20, 5), "llama4-scout-17b-a16e": (20, 5),
+    "seamless-m4t-medium": (20, 5),
+}
+
+
+@pytest.mark.parametrize("name", list(FAMILIES))
+def test_generate_every_family_matches_reference(name, monkeypatch):
+    """``Engine.generate`` on each family's reduced config against the JAX
+    engine's greedy tokens.  The enc-dec source is the frontend stub's:
+    the port's is swapped for the reference's draws, which it cannot
+    equal."""
+    import jax
+    from repro.models import api as japi
+    from repro.serve import Engine as JEngine
+
+    cfg, jp, p = model_pair(name)
+    if cfg.is_encdec:
+        def stub(cfg, batch, seq, key=None, *, device=None):
+            return torch.from_numpy(np.array(
+                japi.frontend_stub_embeds(cfg, batch, seq))).to(device)
+
+        monkeypatch.setattr(api, "frontend_stub_embeds", stub)
+    Tp, max_new = FAMILIES[name]
+    prompts = np.random.default_rng(7).integers(0, cfg.vocab, (3, Tp)).astype(np.int32)
+    ref = JEngine(cfg, jp).generate(prompts, max_new=max_new)
+    for backend in ("xla", "pallas"):
+        got = Engine(cfg, p, backend=backend).generate(prompts, max_new=max_new)
+        assert got.dtype == np.int32 and got.shape == (3, max_new)
+        np.testing.assert_array_equal(got, ref)
+
+
+def test_generate_batch_independence_dense():
+    """``tests/test_serving.py``'s batch independence on the dense family:
+    a sequence's tokens do not depend on its batch-mates."""
+    cfg = get_config("tinyllama-1.1b").reduced(n_layers=2)
     eng = Engine(cfg, api.init_params(0, cfg, device="cpu"))
-    with pytest.raises(NotImplementedError, match="KV caches"):
-        eng.generate(np.zeros((1, 4), np.int32), max_new=2)
+    a = np.random.default_rng(3).integers(0, cfg.vocab, (1, 6)).astype(np.int32)
+    b = np.random.default_rng(4).integers(0, cfg.vocab, (1, 6)).astype(np.int32)
+    solo = eng.generate(a, max_new=4)
+    pair = eng.generate(np.concatenate([a, b]), max_new=4)
+    np.testing.assert_array_equal(solo[0], pair[0])
 
 
 def _unit_cost(chunk, worker):

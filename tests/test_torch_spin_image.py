@@ -23,6 +23,7 @@ from repro_torch.kernels.spin_image.ref import (
     _dot3, f32, spin_images_ref, spin_pair_counts)
 
 from _torch_support import cloud
+from _torch_support import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 SPIN_GRID = [  # tests/test_kernels.py: (n_points, n_images, W, bin_size, angle)
     (256, 16, 5, 0.5, 2.0),

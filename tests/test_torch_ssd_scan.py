@@ -31,6 +31,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ssd_scan.ref import pad_time, ssd_scan_chunked_xla, ssd_scan_ref
 
 from _torch_support import require_card
+from _torch_support import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 SHAPES = [  # tests/test_kernels.py: (B, T, H, Dh, S, chunk)
     (1, 128, 2, 32, 16, 64),    # aligned

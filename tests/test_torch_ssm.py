@@ -33,6 +33,7 @@ from repro_torch.models import api, lm, ssm
 from repro_torch.models.params import cast, params_from_numpy
 
 from _torch_support import require_card
+from _torch_support import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 BARS = {"float32": 1e-4, "bfloat16": 3e-2}
 DTYPES = list(BARS)
@@ -320,22 +321,6 @@ def test_init_params_matches_reference_layout(jax_params):
     assert spec({k: v for k, v in p.items() if k != "layers"}) == \
         spec({k: v for k, v in ported.items() if k != "layers"})
     assert [spec(lp) for lp in p["layers"]] == [spec(lp) for lp in ported["layers"]]
-
-
-def test_dense_cache_names_its_roadmap_item():
-    """The dense family's KV caches are not ported: init_cache, prefill and
-    decode_step raise naming ROADMAP.md item 11; its forward still runs."""
-    cfg = get_config("tinyllama-1.1b").reduced(n_layers=1)
-    p = api.init_params(0, cfg, device="cpu")
-    for call in (lambda: api.init_cache(cfg, 1, 8, device="cpu"),
-                 lambda: api.prefill(p, cfg, {"tokens": np.zeros((1, 4), np.int32)}, {}),
-                 lambda: api.decode_step(p, cfg, np.zeros((1,), np.int32), {})):
-        with pytest.raises(NotImplementedError, match=r"KV caches.*item 11"):
-            call()
-    assert api.forward(p, cfg, {"tokens": np.zeros((1, 4), np.int32)}).shape == (1, 4, cfg.vocab)
-    hybrid = get_config("zamba2-2.7b").reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        api.init_cache(hybrid, 1, 8, device="cpu")
 
 
 # ---------------------------------------------------------------------------
