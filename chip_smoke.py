@@ -115,6 +115,28 @@ protocol and applications through the port's public entry points:
      at the geometries these models give them (head dims 80, 120 with
      the window, 64, 64 non-causal, 128; the scan at 80 heads, state 64)
      against their plain versions, timed beside SDPA and their bounds.
+ 13. (run after 12) training, on the "xla" backend (the kernels are not
+     differentiable, as the reference's Pallas kernels are not; no kernel
+     may launch in this phase): (a) the chunked attention's output and
+     dq/dk/dv against the dense path through autograd at tinyllama-1.1b's
+     geometry (B 1, T 2048, causal) and at h2o-danube-3-4b's (T 6144,
+     SWA 4096), f32, at tests/test_flash_xla.py's bars; (b) the reduced
+     tinyllama in f32, params through ``params_from_numpy``: three
+     ``make_train_step`` steps and one with 2 microbatches on the card
+     against the same on the CPU (losses and grad_norm within 1e-5
+     relative, the params' distance within 1e-3 of the distance moved),
+     every remat policy's gradients against "none"'s; (c) tinyllama-1.1b
+     at full width (22 layers, bf16 params, f32 AdamW state) through
+     ``Trainer``: 4 steps of B=4 x T=2048 from the DLS sampler (fac2),
+     remat "full" (without remat the dense f32 scores of 22 layers do
+     not fit), finite losses, params changed; then one step per policy
+     (full, dots, group:11) on one batch, losses within 1e-2 of full's,
+     and the split of a step into forward, backward and AdamW; (d) one
+     step at B=1 x T=8192, past the chunked threshold (its backward runs
+     once a layer); (e) a checkpoint of the full-width params and state
+     (2 layers) restored bit for bit, and a Trainer stopped and resumed
+     equal to an unbroken one.  Per step: CUDA-event and wall ms,
+     tokens/s, peak GiB.
 
 The launch counts are zeroed just before each path (2-5, 6, 7, 8, 10's run
 of the selected technique, 11, whose worker processes count their own
@@ -2027,6 +2049,433 @@ def model_plane_path(dev):
     return launches
 
 
+# phase 13: training.  (a) the chunked attention at tinyllama-1.1b's
+# geometry and h2o-danube's window, at the reference's bars
+# (tests/test_flash_xla.py): forward atol = rtol = 2e-5, gradients atol 5e-5,
+# rtol 5e-4; (b) the reduced tinyllama's train steps on the card against the
+# CPU; (c) tinyllama-1.1b at full width through Trainer, then one step per
+# remat policy; (d) one step past the chunked threshold; (e) checkpoints.
+TRAIN_MODEL = "tinyllama-1.1b"
+TRAIN_B, TRAIN_T, TRAIN_STEPS = 4, 2048, 4
+TRAIN_LONG_T = 8192  # (d): the chunked path's threshold
+TRAIN_SWA_T = 6144  # (a): h2o-danube's window of 4096 at work
+# TinyLlama's published peak learning rate, no warm-up: a bf16 param of
+# |w| ~ 0.02 moves by more than its ulp in the first step
+TRAIN_LR = 4e-4
+# (b): losses and grad_norm within 1e-5 relative; the params' distance
+# within 1e-3 of the distance they moved (an element whose gradient sits at
+# the rounding noise takes a step of up to lr either way under AdamW,
+# tests/test_torch_train.py)
+TRAIN_REL, TRAIN_PARAM_REL = 1e-5, 1e-3
+# (c): the other policies' loss against "full"'s, relative, in bf16
+REMAT_LOSS_REL = 1e-2
+
+
+def chunked_check(dev, B, T, H, Hkv, D, window, seed):
+    """The chunked attention's output and dq/dk/dv against the dense path
+    through autograd, f32; returns (fwd err, grad errs, ms chunked, ms
+    dense) of one forward + backward each (CUDA events)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import layers as L
+
+    r = np.random.default_rng(seed)
+    data = [torch.from_numpy(r.normal(size=s).astype(np.float32)).to(dev)
+            for s in ((B, T, H, D), (B, T, Hkv, D), (B, T, Hkv, D))]
+
+    def run(fn):
+        ts = [t.clone().requires_grad_(True) for t in data]
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        o = fn(*ts)
+        torch.sin(o).sum().backward()
+        b.record()
+        b.synchronize()
+        return [o.detach()] + [t.grad for t in ts], a.elapsed_time(b)
+
+    got, ms = run(lambda *t: L._sdpa_chunked(*t, causal=True, window=window))
+    want, dense_ms = run(lambda *t: L._sdpa_xla(*t, causal=True, window=window))
+    ok, fwd = close(got[0], want[0], 2e-5, 2e-5)
+    check(ok, f"chunked attention T={T} window={window}: forward within 2e-5 ({fwd!r})")
+    errs = []
+    for name, a, b in zip("qkv", got[1:], want[1:]):
+        ok, e = close(a, b, 5e-5, 5e-4)
+        check(ok, f"chunked attention T={T} window={window}: d{name} within 5e-5 / 5e-4 ({e!r})")
+        errs.append(e)
+    return fwd, errs, ms, dense_ms
+
+
+def numpy_tree(params, cfg):
+    """The port's params as the reference lays them out, numpy: each
+    per-layer list stacked on a leading axis (what ``params_from_numpy``
+    takes)."""
+    import numpy as np
+
+    from repro_torch.models.params import stacked_depths
+    from repro_torch.tree import tree_map
+
+    out = {k: tree_map(lambda t: t.cpu().numpy(), v) for k, v in params.items()}
+    for name in stacked_depths(cfg):
+        out[name] = tree_map(lambda *xs: np.stack([x.cpu().numpy() for x in xs]),
+                             *params[name])
+    return out
+
+
+def tree_distance(a, b) -> float:
+    import torch
+
+    from repro_torch.tree import leaves
+
+    return float(torch.sqrt(sum(((x.float().cpu() - y.float().cpu()) ** 2).sum()
+                                for x, y in zip(leaves(a), leaves(b)))))
+
+
+def step_times(fn, what, tokens):
+    """One call of ``fn()`` (a train step): CUDA-event ms, wall ms,
+    tokens/s by the events and peak GiB since a reset of the peak, printed
+    as ``train <what>``; returns (fn's result, the numbers)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    ev = a.elapsed_time(b)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    nums = {"event_ms": ev, "wall_ms": wall, "tokens_per_s": tokens / ev * 1e3,
+            "peak_gib": peak}
+    print(f"train {what}: {ev!r} ms CUDA events, {wall!r} ms wall, "
+          f"{nums['tokens_per_s']!r} tokens/s, peak {peak!r} GiB")
+    return out, nums
+
+
+def train_vs_cpu(dev):
+    """(b): the reduced tinyllama in f32, params through
+    ``params_from_numpy``, three ``make_train_step`` steps on the card
+    against the same three on the CPU; one step with 2 microbatches; each
+    remat policy's gradients against "none"'s on the card."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.models.params import params_from_numpy
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+    from repro_torch.tree import leaves
+
+    cfg = get_config(TRAIN_MODEL).reduced()
+    tree = numpy_tree(api.init_params(0, cfg, device="cpu"), cfg)
+    opt = adamw.AdamWConfig(lr=1e-2, warmup_steps=0, schedule="constant")
+    worst = {"loss": 0.0, "grad_norm": 0.0}
+
+    def steps(microbatches, n):
+        """``n`` steps from the same params on the card and on the CPU,
+        each step's metrics held to the bar; returns the params."""
+        ps = {d: params_from_numpy(tree, cfg, device=d) for d in (dev, "cpu")}
+        states = {d: adamw.init(p) for d, p in ps.items()}
+        fn = tstep.make_train_step(cfg, opt, microbatches=microbatches)
+        for s in range(n):
+            batch = {"tokens": np.random.default_rng(30 + s).integers(
+                0, cfg.vocab, (4, 64)).astype(np.int32)}
+            m = {d: fn(ps[d], states[d], batch)[2] for d in ps}
+            for k in worst:
+                rel = abs(float(m[dev][k]) - float(m["cpu"][k])) / abs(float(m["cpu"][k]))
+                worst[k] = max(worst[k], rel)
+                check(rel <= TRAIN_REL, f"train (b) step {s + 1} microbatches="
+                                        f"{microbatches}: {k} card vs CPU {rel!r} <= {TRAIN_REL}")
+        return ps
+
+    steps(2, 1)
+    ps = steps(1, 3)
+    p0 = params_from_numpy(tree, cfg, device="cpu")
+    moved = tree_distance(ps["cpu"], p0)
+    dist = tree_distance(ps[dev], ps["cpu"])
+    diffs = [(a.cpu() - b).abs() for a, b in zip(leaves(ps[dev]), leaves(ps["cpu"]))]
+    n_over = sum(int((d > 1e-4).sum()) for d in diffs)
+    n_all = sum(d.numel() for d in diffs)
+    print(f"train (b) reduced {TRAIN_MODEL} f32, 3 steps and, from the same params, "
+          f"one with 2 microbatches, card vs CPU: loss {worst['loss']!r}, grad_norm "
+          f"{worst['grad_norm']!r} relative at worst; params' distance {dist!r} = "
+          f"{dist / moved!r} of the distance moved {moved!r}; max |dp| "
+          f"{float(max(d.max() for d in diffs))!r}, {n_over} of {n_all} elements over 1e-4")
+    check(dist <= TRAIN_PARAM_REL * moved,
+          f"train (b): params' distance within {TRAIN_PARAM_REL} of the distance moved")
+
+    batch = {"tokens": np.random.default_rng(40).integers(0, cfg.vocab, (4, 64)).astype(np.int32)}
+    loss0, g0 = tstep.value_and_grad(ps[dev], cfg, batch)
+    for policy in ("full", "dots", "group:2"):
+        loss, g = tstep.value_and_grad(ps[dev], cfg, batch, remat=policy)
+        err = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                  for a, b in zip(leaves(g), leaves(g0)))
+        print(f"train (b) remat {policy} on the card: loss {float(loss)!r} (none "
+              f"{float(loss0)!r}), gradients within {err!r} of each leaf's max")
+        check(abs(float(loss) - float(loss0)) <= 1e-6 * abs(float(loss0)) and err <= 1e-6,
+              f"train (b): remat {policy} equals none")
+
+
+# kernel names of the matrix products (cuBLAS, cuBLASLt and CUTLASS)
+GEMM_NAMES = ("gemm", "nvjet", "cutlass", "xmma")
+
+
+def profile_split(fn, what):
+    """``torch.profiler`` (CUDA activity) over one call of ``fn()``: the
+    device time by kernel name, the matrix products' share, the busy share
+    of the wall time (which the profiler lengthens), the top kernels."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name, count = collections.Counter(), collections.Counter()
+    for e in prof.events():
+        if getattr(e, "device_type", None) == DeviceType.CUDA:
+            by_name[e.name] += e.time_range.elapsed_us() / 1e3
+            count[e.name] += 1
+    dev = sum(by_name.values())
+    gemm = sum(v for k, v in by_name.items() if any(g in k.lower() for g in GEMM_NAMES))
+    print(f"train {what} under torch.profiler: {dev!r} ms device time in "
+          f"{sum(count.values())} kernels, {wall!r} ms wall (busy {dev / wall!r}); "
+          f"matrix products {gemm!r} ms ({gemm / dev!r}), the rest {dev - gemm!r} ms")
+    check(dev > 0, f"train {what}: the profiler saw the card's work")
+    for name, ms in by_name.most_common(8):
+        print(f"  {ms!r} ms ({ms / dev:.2%}) x{count[name]} {name[:100]}")
+
+
+def checkpoint_path(root, dev):
+    """(e): a save and restore of tinyllama's params (bf16) and AdamW
+    state (f32) at full width and 2 layers, bit for bit; then a Trainer
+    stopped and resumed against an unbroken one (f32, the reduced size of
+    tests/test_substrate.py)."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.models import api
+    from repro_torch.optim import adamw
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.tree import leaves, tree_map
+
+    ckdir = root / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    try:
+        cfg = dataclasses.replace(get_config(TRAIN_MODEL), n_layers=2)
+        params = api.init_params(1, cfg, device=dev)
+        tree = {"params": params, "opt": adamw.init(params)}
+        tree["opt"]["step"].fill_(3)
+        n_bytes = sum(t.numel() * t.element_size() for t in leaves(tree))
+        mgr = CheckpointManager(str(ckdir / "full"), keep_n=1)
+        t0 = time.perf_counter()
+        mgr.save(3, tree, extra={"step": 3})
+        t_snap = time.perf_counter() - t0
+        mgr.wait()
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got, extra = mgr.restore(tree_map(torch.zeros_like, tree))
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        same = all(a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+                   for a, b in zip(leaves(got), leaves(tree)))
+        print(f"train (e) checkpoint {TRAIN_MODEL} (2 of 22 layers, bf16 params, f32 "
+              f"state): {n_bytes / 1e9!r} GB, snapshot {t_snap!r} s, on disk {t_save!r} s, "
+              f"restore {t_restore!r} s; bit-exact {same}")
+        check(same and extra == {"step": 3}, "train (e): the restore is bit-exact")
+        del got, tree, params
+
+        tiny = ModelConfig(name="tiny", family="dense", n_layers=2, d_model=64,
+                           n_heads=2, n_kv_heads=2, d_ff=128, vocab=64, dtype="float32")
+        kw = dict(per_host_batch=4, seq_len=32, n_samples=500, ckpt_every=10,
+                  log_every=1000)
+        quiet = dict(log=lambda s: None, device=dev)
+        p1, _ = Trainer(tiny, TrainConfig(steps=20, ckpt_dir=str(ckdir / "a"), **kw),
+                        **quiet).run()
+        Trainer(tiny, TrainConfig(steps=10, ckpt_dir=str(ckdir / "b"), **kw), **quiet).run()
+        t3 = Trainer(tiny, TrainConfig(steps=20, ckpt_dir=str(ckdir / "b"), **kw), **quiet)
+        p3, _ = t3.run()
+        d = max(float((a - b).abs().max()) for a, b in zip(leaves(p1), leaves(p3)))
+        print(f"train (e) Trainer stopped at step 10 and resumed to 20 against 20 "
+              f"unbroken (f32, tiny): max |dp| {d!r}")
+        check(t3.state_step == 20 and d <= 1e-5, "train (e): resume equals an unbroken run")
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+
+def training_path(root, dev):
+    """Phase 13: training on the card -- (a) the chunked attention, (b)
+    the card against the CPU, (c) tinyllama-1.1b at full width through
+    ``Trainer`` and one step per remat policy, (d) a step past the chunked
+    threshold, (e) checkpoints."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import synth_tokens
+    from repro_torch.kernels import _build
+    from repro_torch.models import layers as L
+    from repro_torch.optim import adamw
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.train import step as tstep
+    from repro_torch.tree import tree_map
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    _build.reset_launches()
+    cfg = get_config(TRAIN_MODEL)
+    h2o = get_config("h2o-danube-3-4b")
+    # -- (a) --------------------------------------------------------------
+    for what, shape in (
+            (f"{TRAIN_MODEL} causal", (1, TRAIN_T, cfg.n_heads, cfg.n_kv_heads, cfg.hd, None)),
+            (f"h2o-danube-3-4b SWA {h2o.window}",
+             (1, TRAIN_SWA_T, h2o.n_heads, h2o.n_kv_heads, h2o.hd, h2o.window))):
+        fwd, errs, ms, dense_ms = chunked_check(dev, *shape, seed=13)
+        print(f"train (a) chunked attention {what} (B, T, H, Hkv, D, window) = {shape}, "
+              f"f32: forward {fwd!r}, dq/dk/dv {errs!r} from the dense path; forward + "
+              f"backward {ms!r} ms, dense {dense_ms!r} ms (CUDA events, first call)")
+    torch.cuda.empty_cache()
+    # -- (b) --------------------------------------------------------------
+    train_vs_cpu(dev)
+    torch.cuda.empty_cache()
+
+    # -- (c) --------------------------------------------------------------
+    tcfg = TrainConfig(steps=TRAIN_STEPS, per_host_batch=TRAIN_B, seq_len=TRAIN_T,
+                       technique="fac2", remat="full", log_every=1)
+    opt = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=0, schedule="constant")
+    trainer = Trainer(cfg, tcfg, opt, device=dev, log=lambda s: print(f"  {s}"))
+    params, state = trainer.init_or_restore()
+    before = [t.clone() for t in (params["embed"], params["layers"][0]["attn"]["wq"],
+                                  params["layers"][-1]["mlp"]["wd"])]
+    marks, metrics = [], []
+
+    def mark(step, _params, m):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((ev, time.perf_counter()))
+        metrics.append({k: float(v) for k, v in m.items()})
+
+    tokens = TRAIN_B * TRAIN_T
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mark(0, None, {})
+    metrics.clear()
+    trainer.run(params, state, hooks=[mark])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = [(a[0].elapsed_time(b[0]), (b[1] - a[1]) * 1e3) for a, b in zip(marks, marks[1:])]
+    for i, ((ev, wall), m) in enumerate(zip(steps, metrics)):
+        print(f"train (c) {TRAIN_MODEL} full width, bf16, remat full, B={TRAIN_B} x "
+              f"T={TRAIN_T}, step {i + 1}: loss {m['loss']!r}, grad_norm {m['grad_norm']!r}; "
+              f"{ev!r} ms CUDA events, {wall!r} ms wall (data + step), "
+              f"{tokens / ev * 1e3!r} tokens/s")
+        check(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]),
+              f"train (c) step {i + 1}: finite loss and grad_norm")
+    changed = [float((a != b).double().mean()) for a, b in zip(
+        before, (params["embed"], params["layers"][0]["attn"]["wq"],
+                 params["layers"][-1]["mlp"]["wd"]))]
+    print(f"train (c) peak {peak!r} GiB over the {TRAIN_STEPS} steps; claims from the "
+          f"DLS sampler (fac2): epoch state {dataclasses.asdict(trainer.sampler.state())}; "
+          f"share of elements changed (embed, layer 0 wq, layer 21 wd): {changed!r}")
+    check(len(metrics) == TRAIN_STEPS and min(changed[1:]) > 0.5,
+          "train (c): the params changed")
+    del before
+
+    # one step per policy on the trained params and one batch; the params
+    # and state go back to the trained values from a host copy after each
+    # (a copy on the card would cost group:11 the room it needs: it keeps
+    # 11 layers' f32 scores, ~4.3 GB a layer)
+    batch = {"tokens": torch.from_numpy(synth_tokens(
+        99, np.arange(TRAIN_B), TRAIN_T, cfg.vocab)).to(dev)}
+    trained = (params, state)
+    host = tree_map(lambda t: t.to("cpu", copy=True), trained)
+    losses, policy_nums = {}, {}
+    for policy in ("full", "dots", "group:11"):
+        fn = tstep.make_train_step(cfg, opt, remat=policy)
+        (_, _, m), nums = step_times(lambda: fn(params, state, batch),
+                                     f"(c) remat {policy} step", tokens)
+        losses[policy] = float(m["loss"])
+        policy_nums[policy] = nums
+        tree_map(lambda t, h: t.copy_(h), trained, host)
+        torch.cuda.empty_cache()
+    fn = tstep.make_train_step(cfg, opt, remat="full")
+    profile_split(lambda: fn(params, state, batch), "(c) remat full step")
+    tree_map(lambda t, h: t.copy_(h), trained, host)
+    del host
+    for policy in ("dots", "group:11"):
+        rel = abs(losses[policy] - losses["full"]) / abs(losses["full"])
+        print(f"train (c) remat {policy}: loss {losses[policy]!r} against full's "
+              f"{losses['full']!r} ({rel!r} relative)")
+        check(rel <= REMAT_LOSS_REL, f"train (c): remat {policy} loss within "
+                                     f"{REMAT_LOSS_REL} of full's")
+
+    # where one step's time goes (CUDA events): the forward alone, the
+    # forward + backward under "full" (which recomputes the forward), the
+    # AdamW update; the step's wall time beyond its events is the host's
+    with torch.no_grad():
+        fwd_ms = event_and_wall_ms(lambda: tstep.loss_fn(params, cfg, batch),
+                                   "train (c) split: forward (no grad)")[0]
+    grads = {}
+
+    def vg():
+        grads["g"] = tstep.value_and_grad(params, cfg, batch, remat="full")[1]
+
+    vg_ms = step_times(vg, "(c) split: forward + backward (remat full)", tokens)[1]["event_ms"]
+    p = tree_map(torch.clone, params)
+    s = tree_map(torch.clone, state)
+    adamw.update(opt, grads["g"], s, p)  # a warm-up: its temporaries allocated
+    upd_ms = step_times(lambda: adamw.update(opt, grads["g"], s, p),
+                        "(c) split: AdamW update", tokens)[1]["event_ms"]
+    del p, s, grads
+    full = policy_nums["full"]
+    print(f"train (c) split of one step (ms, CUDA events): forward {fwd_ms!r}, "
+          f"recomputed forward ~{fwd_ms!r}, backward {vg_ms - 2 * fwd_ms!r}, AdamW "
+          f"{upd_ms!r}; the step {full['event_ms']!r}, host beyond the events "
+          f"{full['wall_ms'] - full['event_ms']!r}")
+    torch.cuda.empty_cache()
+
+    # -- (d) --------------------------------------------------------------
+    long_batch = {"tokens": torch.from_numpy(synth_tokens(
+        98, np.arange(1), TRAIN_LONG_T, cfg.vocab)).to(dev)}
+    bwd_calls = []
+    bwd = L._flash_bwd_core
+    L._flash_bwd_core = lambda *a: bwd_calls.append(1) or bwd(*a)
+    try:
+        fn = tstep.make_train_step(cfg, opt, remat="full")
+        (_, _, m), _ = step_times(lambda: fn(params, state, long_batch),
+                                  f"(d) B=1 x T={TRAIN_LONG_T} remat full step", TRAIN_LONG_T)
+    finally:
+        L._flash_bwd_core = bwd
+    print(f"train (d) loss {float(m['loss'])!r}, grad_norm {float(m['grad_norm'])!r}; "
+          f"chunked attention backward calls {len(bwd_calls)}")
+    check(bool(torch.isfinite(m["loss"])) and len(bwd_calls) == cfg.n_layers,
+          f"train (d): finite loss through the chunked path ({len(bwd_calls)} layers)")
+    del params, state, trainer, trained
+    torch.cuda.empty_cache()
+
+    # -- (e) --------------------------------------------------------------
+    checkpoint_path(root, dev)
+    # the training path is the "xla" backend: no kernel of the port runs
+    check(not any(_build.LAUNCHES.values()),
+          f"train: no kernel launched in phase 13 ({_build.LAUNCHES})")
+    print(f"train phase: {time.perf_counter() - t_phase:.1f} s wall")
+
+
 def main() -> int:
     root = Path(__file__).resolve().parent
     if not (root / "src" / "repro_torch" / "csrc").is_dir():
@@ -2343,6 +2792,8 @@ def main() -> int:
             r["launches_model_plane"] = {
                 m: {call: n[r["name"]] for call, n in v["bf16"].items()}
                 for m, v in plane.items()}
+    # -- 13. training: the chunked attention, card vs CPU, tinyllama-1.1b --
+    training_path(root, dev)
     # -- 9. the DES (no kernel: the fast path's batch core on the card) -----
     des_path()
     # -- 10. replay: device traces, technique="auto", PSIA, the CLI --------

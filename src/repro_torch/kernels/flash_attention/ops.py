@@ -30,13 +30,31 @@ def placed(tensors, device, what, contiguous=True):
     return tuple(t.contiguous() for t in out) if contiguous else out
 
 
+def refuse_grad(tensors, what):
+    """Raise if autograd would differentiate through the kernel ``what``.
+
+    The CUDA kernels have no backward and their outputs no ``grad_fn``, so
+    a gradient through them would silently leave them out.  The reference
+    does not differentiate its Pallas kernels either (``jax.grad`` fails in
+    ``pallas_call``'s JVP rule); training takes ``backend="xla"``.  Raised
+    on the card and on the CPU alike.
+    """
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{what} is not differentiable: the reference does not differentiate "
+            "its Pallas kernels either; train with backend='xla', or call the "
+            "kernel under torch.no_grad()")
+
+
 def flash_attention(q, k, v, *, causal=True, window=None, scale=None,
                     blk_q=128, blk_k=128, device=None):
     """Fused attention.  q (B,H,Tq,D); k,v (B,Hkv,Tk,D) -> (B,H,Tq,D).
 
     The kernel on CUDA, its plain version on the CPU (see ``placed`` for
-    the device).
+    the device).  Not differentiable (``refuse_grad``).
     """
+    refuse_grad((q, k, v), "flash_attention")
     q, k, v = placed((q, k, v), device, "flash_attention")
     run = _flash_plain if q.device.type == "cpu" else flash_attention_cuda
     return run(q, k, v, causal=causal, window=window, scale=scale,

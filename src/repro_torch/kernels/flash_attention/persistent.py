@@ -24,7 +24,7 @@ import torch
 from repro_torch.kernels import _build
 
 from .kernel import DTYPE_CODE, check_kernel_inputs
-from .ops import placed
+from .ops import placed, refuse_grad
 from .ref import NEG_INF
 
 
@@ -161,10 +161,11 @@ def flash_attention_persistent(
     ``schedule`` to reuse a previous claim run on the same tile space.
     Runs where ``flash_attention`` would (``device``, else q's device,
     else ``"cuda"``): the protocol and persistent kernels on CUDA, their
-    plain versions on the CPU.
+    plain versions on the CPU.  Not differentiable (``ops.refuse_grad``).
     """
     from repro_torch.device.persistent import claim_schedule
 
+    refuse_grad((q, k, v), "flash_attention_persistent")
     q, k, v = placed((q, k, v), device, "flash_attention_persistent")
     B, H, Tq, D = q.shape
     _, Hkv, Tk, _ = k.shape

@@ -6,7 +6,7 @@ kernel) and the CPU (its plain version).
 """
 from __future__ import annotations
 
-from repro_torch.kernels.flash_attention.ops import placed
+from repro_torch.kernels.flash_attention.ops import placed, refuse_grad
 
 from .kernel import _ssd_plain, ssd_scan_cuda
 from .ref import ssd_scan_ref
@@ -17,8 +17,9 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk=128, device=None):
 
     The kernel on CUDA, its plain version on the CPU (see ``placed`` for
     the device).  Row-strided views stay views: the kernel takes their
-    batch and time strides.
+    batch and time strides.  Not differentiable (``refuse_grad``).
     """
+    refuse_grad((x, dt, A, Bm, Cm), "ssd_scan")
     x, dt, A, Bm, Cm = placed((x, dt, A, Bm, Cm), device, "ssd_scan",
                               contiguous=False)
     run = _ssd_plain if x.device.type == "cpu" else ssd_scan_cuda

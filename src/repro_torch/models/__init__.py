@@ -1,5 +1,5 @@
-"""The model plane: every family's init, teacher-forced forward, decode
-cache, prefill and decode (dense with SWA, MoE, SSM, hybrid, VLM prefix,
-enc-dec); training (the chunked attention's backward, remat, then
-``train``) is queued in ROADMAP.md."""
+"""The model plane: every family's init (and its shapes on ``meta``),
+teacher-forced forward with the remat policies and the chunked attention's
+backward, decode cache, prefill and decode (dense with SWA, MoE, SSM,
+hybrid, VLM prefix, enc-dec)."""
 from . import api, encdec, layers, lm, params, ssm  # noqa: F401

@@ -1,12 +1,10 @@
 """Family-dispatching facade: one API for all ten architectures.
 
-Port of ``repro.models.api``: ``init_params``, ``forward``, ``init_cache``,
-``prefill`` and ``decode_step`` for every family (dense with SWA, moe,
-ssm, hybrid, vlm and, through ``encdec``, the enc-dec family), and the
-modality frontend stub ``frontend_stub_embeds``.
-
-Not ported yet: ``abstract_params``, the reference's shape-only params for
-the dry run (ROADMAP.md section 1, item 11.8).
+Port of ``repro.models.api``: ``init_params``, ``abstract_params``,
+``forward`` (with the remat policies), ``init_cache``, ``prefill`` and
+``decode_step`` for every family (dense with SWA, moe, ssm, hybrid, vlm
+and, through ``encdec``, the enc-dec family), and the modality frontend
+stub ``frontend_stub_embeds``.
 """
 from __future__ import annotations
 
@@ -29,20 +27,21 @@ def init_params(key, cfg, *, device=None):
 
 
 def abstract_params(cfg, seed: int = 0):
-    """Not ported: the reference's params as shapes only, for the dry run."""
-    raise NotImplementedError(
-        "abstract_params (shape-only params for the dry run) is not ported yet "
-        "(ROADMAP.md section 1, item 11.8)")
+    """The params' tree on ``device="meta"``: the structure, shapes and
+    dtypes of ``init_params``, with nothing allocated or drawn (the
+    reference's ``jax.eval_shape`` of its init)."""
+    return init_params(seed, cfg, device="meta")
 
 
-def forward(params, cfg, batch, *, backend="xla"):
+def forward(params, cfg, batch, *, backend="xla", remat="none"):
     """Teacher-forced logits (B, T(+Tp), vocab) f32 for a batch dict, on
-    the params' device."""
+    the params' device, under the remat policy ``remat`` (``lm``)."""
     if cfg.is_encdec:
         return encdec.forward(params, cfg, batch["src_embeds"], batch["tokens"],
-                              backend=backend)
+                              backend=backend, remat=remat)
     return lm.forward(params, cfg, batch["tokens"],
-                      prefix_embeds=batch.get("prefix_embeds"), backend=backend)
+                      prefix_embeds=batch.get("prefix_embeds"), backend=backend,
+                      remat=remat)
 
 
 def init_cache(cfg, batch_size, max_len, src_len: Optional[int] = None, dtype=None,

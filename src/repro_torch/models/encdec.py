@@ -23,7 +23,7 @@ import torch
 from repro_torch.kernels import _build
 
 from . import layers as L
-from .lm import _embed, _generator, _head, _kv_slice, _stack_kv, shared_block_init
+from .lm import _embed, _generator, _head, _kv_slice, _remat, _stack_kv, shared_block_init
 
 
 def _dec_layer_init(gen, cfg, dtype, device):
@@ -60,16 +60,23 @@ def init_params(key, cfg, *, device=None):
     return p
 
 
-def encode(params, cfg, src_embeds, *, backend="xla"):
-    """The encoder's output (B, S_src, d), normed."""
+def encode(params, cfg, src_embeds, *, backend="xla", remat: str = "none"):
+    """The encoder's output (B, S_src, d), normed.  ``remat`` as
+    ``lm._remat`` takes it: per layer, a group policy leaves the layers
+    as they are (the reference's encoder does the same)."""
     h = torch.as_tensor(src_embeds, device=params["embed"].device)
     positions = torch.arange(h.shape[1], device=h.device)
-    for lp in params["enc_layers"]:
+
+    def body(h, lp):
         a, _ = L.attention_block(
             lp["attn"], L.rmsnorm(h, lp["ln1"], cfg.norm_eps), cfg,
             positions=positions, causal=False, backend=backend)
         h = h + a
-        h = h + L.mlp_block(lp["mlp"], L.rmsnorm(h, lp["ln2"], cfg.norm_eps))
+        return h + L.mlp_block(lp["mlp"], L.rmsnorm(h, lp["ln2"], cfg.norm_eps))
+
+    body = _remat(body, remat)
+    for lp in params["enc_layers"]:
+        h = body(h, lp)
     return L.rmsnorm(h, params["enc_norm"], cfg.norm_eps)
 
 
@@ -91,14 +98,21 @@ def _dec_block(lp, h, cfg, *, positions, enc_out=None, cross_kv=None,
     return h, new_kv
 
 
-def forward(params, cfg, src_embeds, tgt_tokens, *, backend="xla", logits_f32=True):
-    """Teacher-forced logits (B, T_tgt, vocab)."""
-    enc_out = encode(params, cfg, src_embeds, backend=backend)
+def forward(params, cfg, src_embeds, tgt_tokens, *, backend="xla",
+            remat: str = "none", logits_f32=True):
+    """Teacher-forced logits (B, T_tgt, vocab); ``remat`` for the encoder
+    and the decoder layers as in ``encode``."""
+    enc_out = encode(params, cfg, src_embeds, backend=backend, remat=remat)
     h = _embed(params, tgt_tokens)
     positions = torch.arange(h.shape[1], device=h.device)
+
+    def body(h, lp):
+        return _dec_block(lp, h, cfg, positions=positions, enc_out=enc_out,
+                          backend=backend)[0]
+
+    body = _remat(body, remat)
     for lp in params["dec_layers"]:
-        h, _ = _dec_block(lp, h, cfg, positions=positions, enc_out=enc_out,
-                          backend=backend)
+        h = body(h, lp)
     logits = _head(params, cfg, h)
     return logits.float() if logits_f32 else logits
 

@@ -25,13 +25,21 @@ tensor index (``index_copy``), so a layer makes no host sync; an append
 past the cache's end lands at ``S_c - T``, where the reference's
 ``dynamic_update_slice`` clamps it.
 
+The ``"xla"`` backend leaves the dense path for the chunked attention
+(``_sdpa_chunked``) where the reference does: from 8192 keys (4096 at
+d_model >= 8192) in a self- or cross-attention call with T > 1 and no
+cache column positions, and from 8192 keys in ``attention_with_kv``.  Its
+forward is an online softmax over blocks of queries and keys, and its
+backward a ``torch.autograd.Function`` that saves (q, k, v, o, lse) and
+recomputes each block's probabilities, as the reference's ``custom_vjp``
+does; the (Tq, Tk) scores never exist whole.
+
+The ``"pallas"`` kernels are not differentiable, as the reference's are
+not: under grad they raise (training uses ``"xla"``).
+
 The MoE dispatch runs as one group (``G = 1``): the reference's
 group-local dispatch only differs under a sharding context, which is not
 ported (ROADMAP.md section 1, item 13).
-
-Not ported yet, and raising ``NotImplementedError`` with their ROADMAP.md
-item: the chunked ``custom_vjp`` attention that ``"xla"`` takes for long
-sequences (item 11.6), including ``attention_with_kv``'s.
 """
 from __future__ import annotations
 
@@ -42,11 +50,11 @@ from repro_torch.kernels import flash_attention
 
 NEG_INF = -1e30
 
-#: at or above this many keys the JAX package's "xla" backend leaves the
-#: dense path for its chunked online-softmax path (4096 for d_model >= 8192)
+#: at or above this many keys the "xla" backend leaves the dense path for
+#: the chunked online-softmax path (4096 for d_model >= 8192)
 CHUNKED_ATTN_THRESHOLD = 8192
-
-CHUNKED_ITEM = "ROADMAP.md section 1, item 11.6 (the chunked attention)"
+CHUNK_BLK_Q = 1024
+CHUNK_BLK_K = 1024
 
 
 def dtype_of(name: str):
@@ -62,7 +70,10 @@ def dtype_of(name: str):
 def dense_init(gen: torch.Generator, shape, scale=None, dtype=torch.float32,
                device=None):
     """Normal(0, 1) * scale (default fan_in ** -0.5), drawn in f32 on the
-    generator's device from ``gen``, then cast to ``dtype`` on ``device``."""
+    generator's device from ``gen``, then cast to ``dtype`` on ``device``.
+    On ``"meta"`` nothing is drawn: the leaf has a shape and dtype only."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     fan_in = shape[0] if len(shape) >= 2 else 1
     scale = (fan_in ** -0.5) if scale is None else scale
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
@@ -162,10 +173,151 @@ def _sdpa_xla(q, k, v, *, causal, window, row_pos=None, col_pos=None):
     return o.reshape(B, Tq, H, D).to(q.dtype)
 
 
-def _chunked(what: str, n_keys: int):
-    return NotImplementedError(
-        f"{what}: the chunked attention the 'xla' backend takes at {n_keys} keys "
-        f"is not ported yet ({CHUNKED_ITEM}); use backend='pallas'")
+def _blk_mask(rows, cols, Tq, Tk, causal, window):
+    mask = (cols < Tk) & (rows < Tq)
+    if causal:
+        mask = mask & (cols <= rows)
+    if window is not None:
+        mask = mask & (cols > rows - window)
+    return mask
+
+
+def _blocks(t, n, blk):
+    """``t`` (B, T, ...) zero-padded along T to ``n * blk`` and cut into
+    ``n`` blocks of ``blk`` rows."""
+    pad = [0, 0] * (t.dim() - 2) + [0, n * blk - t.shape[1]]
+    return F.pad(t, pad).split(blk, dim=1)
+
+
+def _live(qi, ki, row0, Tq, blk_q, blk_k, causal, window):
+    """Whether block (qi, ki) holds an unmasked pair.  A block with none
+    changes nothing (its p is 0 and its rescale exp(0) = 1), so it is
+    skipped; with a tensor ``row0`` every block runs, as in the
+    reference's scan."""
+    if not isinstance(row0, int):
+        return True
+    lo, hi = row0 + qi * blk_q, row0 + min((qi + 1) * blk_q, Tq) - 1
+    if causal and ki * blk_k > hi:
+        return False
+    return window is None or (ki + 1) * blk_k - 1 > lo - window
+
+
+def _flash_fwd_core(q, k, v, causal, window, row0, blk_q, blk_k):
+    """Returns (o (B,Tq,H,D), lse (B,Hkv,g,Tq_pad)) -- online softmax over
+    kv blocks, for each q block; the scores never exist whole.  Products
+    take f32 operands (the reference's f32 accumulation)."""
+    B, Tq, H, D = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
+    group = H // Hkv
+    nq, nk = -(-Tq // blk_q), -(-Tk // blk_k)
+    ks, vs = _blocks(k, nk, blk_k), _blocks(v, nk, blk_k)
+    dev = q.device
+    outs, lses = [], []
+    for qi, qb in enumerate(_blocks(q, nq, blk_q)):
+        qf = (qb * torch.tensor(D ** -0.5, dtype=qb.dtype)).reshape(
+            B, blk_q, Hkv, group, D).float()
+        rows = row0 + qi * blk_q + torch.arange(blk_q, device=dev)[:, None]
+        m = torch.full((B, Hkv, group, blk_q), NEG_INF, device=dev)
+        l = torch.zeros((B, Hkv, group, blk_q), device=dev)
+        acc = torch.zeros((B, Hkv, group, blk_q, D), device=dev)
+        for ki in range(nk):
+            if not _live(qi, ki, row0, Tq, blk_q, blk_k, causal, window):
+                continue
+            s = torch.einsum("btkgd,bskd->bkgts", qf, ks[ki].float())
+            cols = ki * blk_k + torch.arange(blk_k, device=dev)[None, :]
+            mask = _blk_mask(rows, cols, row0 + Tq, Tk, causal, window)
+            s = torch.where(mask, s, NEG_INF)
+            m_n = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_n[..., None]) * mask
+            alpha = torch.exp(m - m_n)
+            l = alpha * l + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgts,bskd->bkgtd", p.to(v.dtype).float(), vs[ki].float())
+            m = m_n
+        o = acc / torch.where(l > 0, l, 1.0)[..., None]
+        outs.append(o.permute(0, 3, 1, 2, 4).reshape(B, blk_q, H, D).to(q.dtype))
+        # +inf for fully-masked rows => bwd p = exp(s - inf) = 0 (no NaNs)
+        lses.append(torch.where(l > 0, m + torch.log(l.clamp(min=1e-38)), torch.inf))
+    return torch.cat(outs, dim=1)[:, :Tq], torch.cat(lses, dim=-1)
+
+
+def _flash_bwd_core(q, k, v, o, lse, do, causal, window, row0, blk_q, blk_k):
+    """FlashAttention backward: p recomputed per block from ``lse``;
+    residuals are O(T*d).  Returns (dq, dk, dv) in the inputs' dtypes."""
+    B, Tq, H, D = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
+    group = H // Hkv
+    scale = D ** -0.5
+    nq, nk = -(-Tq // blk_q), -(-Tk // blk_k)
+    dev = q.device
+    qs, dos, os_ = ([t.reshape(B, blk_q, Hkv, group, D) for t in _blocks(x, nq, blk_q)]
+                    for x in (q, do, o))
+    # Di = rowsum(do * o): (B, Hkv, g, blk_q) per q block
+    Ds = [torch.einsum("btkgd,btkgd->bkgt", d.float(), ob.float())
+          for d, ob in zip(dos, os_)]
+    lses = lse.split(blk_q, dim=-1)
+    dq = [torch.zeros((B, blk_q, H, D), device=dev) for _ in range(nq)]
+    dks, dvs = [], []
+    for ki, (kb, vb) in enumerate(zip(_blocks(k, nk, blk_k), _blocks(v, nk, blk_k))):
+        cols = ki * blk_k + torch.arange(blk_k, device=dev)[None, :]
+        dk_b = torch.zeros((B, blk_k, Hkv, D), device=dev)
+        dv_b = torch.zeros((B, blk_k, Hkv, D), device=dev)
+        for qi in range(nq):
+            if not _live(qi, ki, row0, Tq, blk_q, blk_k, causal, window):
+                continue
+            qf, dof = qs[qi].float(), dos[qi].float()
+            rows = row0 + qi * blk_q + torch.arange(blk_q, device=dev)[:, None]
+            mask = _blk_mask(rows, cols, row0 + Tq, Tk, causal, window)
+            s = torch.einsum("btkgd,bskd->bkgts", qf, kb.float()) * scale
+            p = torch.exp(s - lses[qi][..., None]) * mask
+            dv_b = dv_b + torch.einsum("bkgts,btkgd->bskd", p.to(q.dtype).float(), dof)
+            dp = torch.einsum("btkgd,bskd->bkgts", dof, vb.float())
+            ds = (p * (dp - Ds[qi][..., None]) * scale).to(q.dtype).float()
+            dk_b = dk_b + torch.einsum("bkgts,btkgd->bskd", ds, qf)
+            dq[qi] = dq[qi] + torch.einsum(
+                "bkgts,bskd->btkgd", ds, kb.float()).reshape(B, blk_q, H, D)
+        dks.append(dk_b)
+        dvs.append(dv_b)
+    return (torch.cat(dq, dim=1)[:, :Tq].to(q.dtype),
+            torch.cat(dks, dim=1)[:, :Tk].to(k.dtype),
+            torch.cat(dvs, dim=1)[:, :Tk].to(v.dtype))
+
+
+class _FlashXLA(torch.autograd.Function):
+    """The chunked attention with its FlashAttention backward: the
+    reference's ``custom_vjp`` ``_flash_xla``.  Returns (o, lse); lse is
+    not differentiable."""
+
+    @staticmethod
+    def forward(q, k, v, causal, window, row0, blk_q, blk_k):
+        return _flash_fwd_core(q, k, v, causal, window, row0, blk_q, blk_k)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, *ctx.static = inputs
+        ctx.save_for_backward(q, k, v, *output)
+        ctx.mark_non_differentiable(output[1])
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        return (*_flash_bwd_core(q, k, v, o, lse, do, *ctx.static),
+                None, None, None, None, None)
+
+
+def _sdpa_chunked(q, k, v, *, causal, window, row0=0,
+                  blk_q=CHUNK_BLK_Q, blk_k=CHUNK_BLK_K):
+    """Flash-style attention in plain tensor code, with a flash backward.
+
+    Forward: q blocks x kv blocks with an online softmax -- the (Tq, Tk)
+    scores never exist whole.  Backward (``_FlashXLA``): p recomputed per
+    block from the saved (q, k, v, o, lse).  When ``row0`` is a 0-d tensor
+    (a prefill against a cache at its position -- an inference path, no
+    grads), the forward core runs directly, with no autograd node.
+    """
+    if isinstance(row0, int):
+        return _FlashXLA.apply(q, k, v, causal, window, row0, blk_q, blk_k)[0]
+    return _flash_fwd_core(q, k, v, causal, window, row0, blk_q, blk_k)[0]
 
 
 def cache_slots(pos, T: int, S_c: int, *, ring: bool):
@@ -218,6 +370,7 @@ def attention_block(
 
     new_cache = None
     row_pos = col_pos = None
+    row0 = 0
     if kv_cache is not None:
         pos = torch.as_tensor(cache_pos, device=x.device)
         S_c = kv_cache["k"].shape[1]
@@ -231,6 +384,7 @@ def attention_block(
             # prefill: attend over this call's own keys (banded/causal), as
             # the reference does; it assumes the prefill starts at pos = 0
             col_pos = None
+            row0 = pos
         else:
             k, v = ck, cv
         row_pos = pos + torch.arange(T, device=x.device)
@@ -240,10 +394,16 @@ def attention_block(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=causal, window=cfg.window,
         ).transpose(1, 2)
+    elif (T > 1 and col_pos is None
+          and k.shape[1] >= (4096 if cfg.d_model >= 8192 else CHUNKED_ATTN_THRESHOLD)):
+        # long self- or cross-attention: the chunked path, which never
+        # materializes the (Tq, Tk) scores
+        o = _sdpa_chunked(
+            q, k, v,
+            causal=causal and xattn_kv is None,
+            window=cfg.window if xattn_kv is None else None,
+            row0=row0)
     else:
-        if (T > 1 and col_pos is None
-                and k.shape[1] >= (4096 if cfg.d_model >= 8192 else CHUNKED_ATTN_THRESHOLD)):
-            raise _chunked("attention_block", k.shape[1])
         o = _sdpa_xla(
             q, k, v,
             causal=causal and xattn_kv is None,
@@ -268,8 +428,9 @@ def attention_with_kv(params, x, k, v, cfg):
     H, hd = cfg.n_heads, cfg.hd
     q = (x @ params["wq"]).reshape(B, T, H, hd)
     if T > 1 and k.shape[1] >= CHUNKED_ATTN_THRESHOLD:
-        raise _chunked("attention_with_kv", k.shape[1])
-    o = _sdpa_xla(q, k, v, causal=False, window=None)
+        o = _sdpa_chunked(q, k, v, causal=False, window=None)
+    else:
+        o = _sdpa_xla(q, k, v, causal=False, window=None)
     return o.reshape(B, T, H * hd) @ params["wo"]
 
 

@@ -18,12 +18,22 @@ Hybrid (zamba2-style) layout: the mamba backbone runs in groups of
 attention + MLP) runs after each group, its weights reused across all
 groups, its KV caches per group.
 
-Not ported yet: the remat policies (the reference's ``remat=``; ROADMAP.md
-section 1, item 11.7).
+The forward takes the reference's remat policies (``remat=``), as
+``torch.utils.checkpoint``: ``"none"``; ``"full"`` (each layer
+checkpointed); ``"dots"`` (each layer under selective checkpointing that
+saves the ``x @ W`` products -- ``aten.mm``/``addmm``, no batch dims --
+and recomputes everything else, the counterpart of
+``checkpoint_dots_with_no_batch_dims``); ``"group:G"`` (each run of G
+layers checkpointed, G lowered until it divides the depth).  The hybrid
+applies the policy to its mamba layers only, never to the shared block,
+and a group policy leaves them as they are, as the reference's
+``_remat`` does.  The policies change memory, never values.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from repro_torch.kernels import _build
 
@@ -33,10 +43,13 @@ from . import ssm as SSM
 
 def _generator(key, device) -> torch.Generator:
     """``key`` (a seed or a ``torch.Generator``) as a generator; a seed
-    makes one on ``device``."""
+    makes one on ``device`` (on the CPU for ``"meta"``, where nothing is
+    drawn)."""
     if isinstance(key, torch.Generator):
         return key
-    return torch.Generator(device=device).manual_seed(int(key))
+    device = torch.device(device)
+    return torch.Generator(device="cpu" if device.type == "meta" else device
+                           ).manual_seed(int(key))
 
 
 # ---------------------------------------------------------------------------
@@ -147,27 +160,87 @@ def _groups(cfg, layers):
 
 
 # ---------------------------------------------------------------------------
+# remat
+# ---------------------------------------------------------------------------
+
+#: what the "dots" policy saves: the products without batch dims (x @ W);
+#: the attention einsums carry batch dims and lower to bmm
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_save_dots)
+
+
+def _remat(fn, policy: str):
+    """``fn(h, lp)`` under the per-layer remat ``policy``; a group policy
+    leaves it as it is (``_run_layers`` checkpoints the groups)."""
+    if policy == "none" or policy.startswith("group"):
+        return fn
+    if policy == "full":
+        return lambda h, lp: checkpoint(fn, h, lp, use_reentrant=False)
+    if policy == "dots":
+        return lambda h, lp: checkpoint(fn, h, lp, use_reentrant=False,
+                                        context_fn=_dots_context)
+    raise ValueError(policy)
+
+
+def _run_layers(body, h, layers, remat: str):
+    """``h`` through ``body(h, lp)`` for each layer under the remat policy.
+
+    ``group:G`` = recursive checkpointing: only every G-th layer input is
+    saved; the backward re-runs one group at a time.
+    """
+    if remat.startswith("group"):
+        G = int(remat.split(":")[1]) if ":" in remat else 8
+        while len(layers) % G:
+            G -= 1
+
+        def group(h, gp):
+            for lp in gp:
+                h = body(h, lp)
+            return h
+
+        for g in range(0, len(layers), G):
+            h = checkpoint(group, h, layers[g:g + G], use_reentrant=False)
+        return h
+    step = _remat(body, remat)
+    for lp in layers:
+        h = step(h, lp)
+    return h
+
+
+# ---------------------------------------------------------------------------
 # forward (teacher-forced full sequence)
 # ---------------------------------------------------------------------------
 
 
 def forward(params, cfg, tokens, *, prefix_embeds=None, backend: str = "xla",
-            logits_f32: bool = True):
+            remat: str = "none", logits_f32: bool = True):
     """Token logits (B, T(+Tp), vocab) on the params' device."""
     h = _embed(params, tokens, prefix_embeds)
     positions = torch.arange(h.shape[1], device=h.device)
+
+    def tblock(h, lp):
+        return _tblock(lp, h, cfg, positions=positions, causal=True, backend=backend)[0]
+
+    def ssm_layer(h, lp):
+        return _ssm_layer(lp, h, cfg, backend=backend)[0]
+
     if cfg.family in ("dense", "vlm", "moe"):
-        for lp in params["layers"]:
-            h, _ = _tblock(lp, h, cfg, positions=positions, causal=True, backend=backend)
+        h = _run_layers(tblock, h, params["layers"], remat)
     elif cfg.family == "ssm":
-        for lp in params["layers"]:
-            h, _ = _ssm_layer(lp, h, cfg, backend=backend)
+        h = _run_layers(ssm_layer, h, params["layers"], remat)
     elif cfg.family == "hybrid":
+        inner = _remat(ssm_layer, remat)
         for group in _groups(cfg, params["layers"]):
             for lp in group:
-                h, _ = _ssm_layer(lp, h, cfg, backend=backend)
-            h, _ = _tblock(params["shared"], h, cfg, positions=positions, causal=True,
-                           backend=backend)
+                h = inner(h, lp)
+            h = tblock(h, params["shared"])
     else:
         raise ValueError(cfg.family)
     logits = _head(params, cfg, h)

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.tree import leaves
 
 from .layers import MOE_F32_LEAVES
 from .ssm import F32_LEAVES as SSM_F32_LEAVES
@@ -85,14 +86,9 @@ def params_from_numpy(tree, cfg, device=None, dtype=None):
               for k, v in tree.items() if k not in depths}
     for name, (field, depth) in depths.items():
         stacked = _map(tree[name], lambda a, _: _tensor(a, device))
-        for leaf in _leaves(stacked):
+        for leaf in leaves(stacked):
             if leaf.shape[0] != depth:
                 raise ValueError(f"{name} leaves must lead with {field}={depth}, "
                                  f"got shape {tuple(leaf.shape)}")
         params[name] = [_map(stacked, lambda t, _, i=i: t[i]) for i in range(depth)]
     return params if dtype is None else cast(params, dtype)
-
-
-def _leaves(tree):
-    for v in tree.values():
-        yield from (_leaves(v) if isinstance(v, dict) else (v,))

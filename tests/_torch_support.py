@@ -240,3 +240,52 @@ def to_cpu(tree):
     if isinstance(tree, list):
         return [to_cpu(v) for v in tree]
     return tree.cpu()
+
+
+# ---------------------------------------------------------------------------
+# training: gradients against the reference's
+# ---------------------------------------------------------------------------
+
+
+def restack(params, cfg):
+    """The port's tree with each per-layer list stacked on a leading axis,
+    as the reference lays its layers out."""
+    import torch
+    from repro_torch.models.params import stacked_depths
+    from repro_torch.tree import tree_map
+
+    out = dict(params)
+    for name in stacked_depths(cfg):
+        out[name] = tree_map(lambda *xs: torch.stack(xs), *params[name])
+    return out
+
+
+def jax_value_and_grad(cfg, jp, batch):
+    """The reference's jitted ``value_and_grad`` of ``loss_fn``: (the loss,
+    its gradient leaves as f32 numpy arrays in leaf order)."""
+    import jax
+    from repro.train import step as jstep
+
+    fn = jax.jit(jax.value_and_grad(lambda p, b: jstep.loss_fn(p, cfg, b)))
+    loss, grads = fn(jp, as_jax(batch, cfg))
+    return float(loss), [np.asarray(g, np.float32) for g in jax.tree.leaves(grads)]
+
+
+def grads_close(cfg, got, want, rel):
+    """Each of the port's gradient leaves (restacked) within ``rel`` of the
+    reference leaf's largest |value|; the router under top-1 routing,
+    whose gradient is zero in exact arithmetic, within 1e-6 of the
+    model's largest gradient of zero."""
+    from repro_torch.tree import leaves
+
+    got = [g.float().numpy() for g in leaves(restack(got, cfg))]
+    assert len(got) == len(want)
+    top = max(float(np.abs(w).max()) for w in want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape, i
+        scale = float(np.abs(w).max())
+        if cfg.family == "moe" and cfg.top_k == 1 and scale < 1e-6 * top:
+            # the router's gradient under top-1 routing: zero up to rounding
+            assert float(np.abs(g).max()) < 1e-6 * top, i
+            continue
+        assert float(np.abs(g - w).max()) <= rel * scale, (i, float(np.abs(g - w).max()), scale)

@@ -1,6 +1,8 @@
 """Every architecture of the catalog through the port's model facade:
 ``tests/test_archs.py``'s decode tests on repro_torch, the parameter
-layout against the reference's, and the refusals that remain.
+layout against the reference's (``init_params`` at reduced size, and
+``abstract_params`` on the ``meta`` device at full size), and the long
+attention paths that used to raise.
 
 Each reduced config (``ModelConfig.reduced()``: d 256, 4 layers or 2
 groups, f32) runs ``api.init_params``, ``forward``, ``init_cache``,
@@ -13,6 +15,7 @@ parameter layout is held against the reference's ``abstract_params``
 of the stacked leading axis.  The ``cuda`` test runs each family on the
 card: its kernels against "xla", and its decode against the CPU's.
 """
+import numpy as np
 import pytest
 import torch
 
@@ -99,28 +102,71 @@ def test_init_params_matches_reference_layout(arch):
             assert spec(got[k]) == spec(ref[k]), k
 
 
-def test_remaining_refusals_name_their_items():
-    """What is left of the model plane raises naming its ROADMAP.md item:
-    the chunked attention the "xla" backend takes from 8192 keys (11.6),
-    in ``attention_block`` and in ``attention_with_kv``, and
-    ``abstract_params`` (11.8).  No refusal names items 11.1-11.5."""
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_abstract_params_matches_reference(arch):
+    """``abstract_params`` at the published widths: every leaf on
+    ``meta`` (nothing allocated), with the shape and dtype of the
+    reference's ``ShapeDtypeStruct`` once its stacked leading axis is
+    unstacked."""
+    from repro.configs import get_config as jget
+    from repro.models import api as japi
+    from repro_torch.models.params import stacked_depths
+    from repro_torch.tree import leaves
+
+    cfg = get_config(arch)
+    ref = japi.abstract_params(jget(arch))
+    got = api.abstract_params(cfg)
+    assert all(t.device.type == "meta" for t in leaves(got))
+    assert got.keys() == ref.keys()
+
+    def spec(t, lead=0):
+        if isinstance(t, dict):
+            return {k: spec(v, lead) for k, v in t.items()}
+        return tuple(t.shape)[lead:], str(t.dtype).split(".")[-1]
+
+    depths = stacked_depths(cfg)
+    for k in got:
+        if k in depths:
+            assert len(got[k]) == depths[k][1]
+            assert all(spec(lp) == spec(ref[k], lead=1) for lp in got[k]), k
+        else:
+            assert spec(got[k]) == spec(ref[k]), k
+
+
+def test_remaining_refusals_name_their_items(monkeypatch):
+    """What used to raise now runs: the chunked attention the "xla"
+    backend takes from 8192 keys, in ``attention_block`` (self- and
+    cross-attention) and in ``attention_with_kv``, against the dense
+    function; ``abstract_params`` gives the params on ``meta``.  No
+    refusal of the model plane is left."""
     cfg = get_config("tinyllama-1.1b").reduced(
         d_model=8, n_heads=2, n_kv_heads=1, head_dim=4)
     p = L.attention_init(torch.Generator().manual_seed(0), cfg, torch.float32)
-    x = torch.zeros(1, 8192, 8)
-    with pytest.raises(NotImplementedError, match=r"chunked.*item 11\.6"):
-        L.attention_block(p, x, cfg, backend="xla")
-    with pytest.raises(NotImplementedError, match=r"chunked.*item 11\.6"):
-        L.attention_block(p, torch.zeros(1, 4, 8), cfg, xattn_kv=x)
-    k, v = L.project_kv(p, x, cfg)
-    with pytest.raises(NotImplementedError, match=r"attention_with_kv.*item 11\.6"):
-        L.attention_with_kv(p, torch.zeros(1, 4, 8), k, v, cfg)
-    with pytest.raises(NotImplementedError, match=r"item 11\.8"):
-        api.abstract_params(cfg)
-    # one query against 8192 keys is a decode step: the dense path
-    assert L.attention_with_kv(p, torch.zeros(1, 1, 8), k, v, cfg).shape == (1, 1, 8)
-    # the "pallas" backend never takes the chunked path
-    assert L.attention_block(p, x[:, :4096], cfg, backend="pallas")[0].shape == (1, 4096, 8)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(1, 8193, 8)).astype(np.float32))
+    y = torch.from_numpy(rng.normal(size=(1, 4, 8)).astype(np.float32))
+    calls = []
+    chunked = L._sdpa_chunked
+    monkeypatch.setattr(L, "_sdpa_chunked", lambda *a, **k: calls.append(1) or chunked(*a, **k))
+    with torch.no_grad():
+        got = L.attention_block(p, x, cfg, backend="xla")[0]
+        # the "pallas" backend never takes the chunked path: on the CPU its
+        # plain flash attention is the dense function in blocks
+        torch.testing.assert_close(
+            got, L.attention_block(p, x, cfg, backend="pallas")[0], atol=2e-5, rtol=2e-5)
+        k, v = L.project_kv(p, x, cfg)
+        q = (y @ p["wq"]).reshape(1, 4, 2, 4)
+        dense = L._sdpa_xla(q, k, v, causal=False, window=None).reshape(1, 4, 8) @ p["wo"]
+        torch.testing.assert_close(
+            L.attention_block(p, y, cfg, xattn_kv=x)[0], dense, atol=2e-5, rtol=2e-5)
+        torch.testing.assert_close(
+            L.attention_with_kv(p, y, k, v, cfg), dense, atol=2e-5, rtol=2e-5)
+        assert len(calls) == 3
+        # one query against 8193 keys is a decode step: the dense path
+        assert L.attention_with_kv(p, y[:, :1], k, v, cfg).shape == (1, 1, 8)
+    assert len(calls) == 3
+    meta = api.abstract_params(cfg)
+    assert meta["embed"].device.type == "meta" and meta["embed"].shape == (cfg.vocab, 8)
     with pytest.raises(ValueError, match="backend"):
         L.attention_block(p, x[:, :4], cfg, backend="mosaic")
 

@@ -1,5 +1,6 @@
 """Import hygiene of the port: repro_torch and chip_smoke.py never import
-``jax`` or the reference package ``repro`` (not even a numpy-only module)."""
+``jax`` or the reference package ``repro`` (not even a numpy-only module),
+nor ``ml_dtypes``, which the card's machine does not have."""
 import ast
 from pathlib import Path
 
@@ -7,7 +8,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _imported_modules(tree):

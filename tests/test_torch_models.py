@@ -154,17 +154,29 @@ def test_attention_block_backends_agree(window):
     torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(monkeypatch):
+    """An unknown backend raises; the "xla" backend's chunked path, taken
+    from 8192 keys, gives the dense function (the plain flash attention of
+    "pallas" as the reference here: the dense scores at this length would
+    take 0.5 GB)."""
     cfg = _cfg("f32")
     p = lm.init_params(0, cfg, device="cpu")
     x = torch.zeros(1, 4, cfg.d_model)
     with pytest.raises(ValueError, match="backend"):
         L.attention_block(p["layers"][0]["attn"], x, cfg, backend="mosaic")
-    # the chunked path of the "xla" backend starts at 8192 keys
     small = dataclasses.replace(cfg, d_model=8, n_heads=2, n_kv_heads=1, head_dim=4)
     sp = L.attention_init(torch.Generator().manual_seed(0), small, torch.float32)
-    with pytest.raises(NotImplementedError, match=r"chunked.*item 11\.6"):
-        L.attention_block(sp, torch.zeros(1, 8192, 8), small, backend="xla")
+    calls = []
+    chunked = L._sdpa_chunked
+    monkeypatch.setattr(L, "_sdpa_chunked", lambda *a, **k: calls.append(1) or chunked(*a, **k))
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(1, 8193, 8)).astype(np.float32))
+    with torch.no_grad():
+        got, _ = L.attention_block(sp, x, small, backend="xla")
+        want, _ = L.attention_block(sp, x, small, backend="pallas")
+        assert calls == [1]
+        L.attention_block(sp, x[:, :8191], small, backend="xla")
+    assert calls == [1]  # 8191 keys: the dense path
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
 
 
 # ---------------------------------------------------------------------------
