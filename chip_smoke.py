@@ -137,6 +137,21 @@ protocol and applications through the port's public entry points:
      (2 layers) restored bit for bit, and a Trainer stopped and resumed
      equal to an unbroken one.  Per step: CUDA-event and wall ms,
      tokens/s, peak GiB.
+ 14. (run after 13) sharding: a one-rank NCCL group and
+     ``make_test_mesh(1)``, a (data=1, model=1) mesh.  tinyllama-1.1b at
+     full width (22 layers, B 4 x T 512, seed 0), params placed by
+     ``distribute(params, params_pspecs(...))``: ``api.forward(...,
+     ctx=make_ctx(mesh), backend="pallas")`` against the same forward
+     without ctx (f32 within 1e-6, bf16 within 1e-3 of max |logit|; 22
+     attention launches each), prefill and one greedy decode step, one
+     ``make_train_step(ctx=..., microbatches=2)`` step (loss within 1e-6
+     relative); mamba2-370m at full width the same way (48 SSD-scan
+     launches a forward); each call's CUDA-event and wall ms with and
+     without ctx (their difference: what DTensor dispatch and
+     ``local_map`` cost a call); ``python -m repro_torch.launch.serve
+     --arch tinyllama-1.1b --no-reduced`` as a subprocess; the device
+     hierarchy drained by ``dls.loop(90, "fac2", P=2,
+     runtime="hierarchical")``.  The group is destroyed before phase 11.
 
 The launch counts are zeroed just before each path (2-5, 6, 7, 8, 10's run
 of the selected technique, 11, whose worker processes count their own
@@ -2476,6 +2491,188 @@ def training_path(root, dev):
     print(f"train phase: {time.perf_counter() - t_phase:.1f} s wall")
 
 
+# phase 14: the model plane sharded on a one-card mesh.  tinyllama-1.1b
+# and mamba2-370m at full width, B x T each; the ctx forward's bars of max
+# |logit| (f32: the same arithmetic on the same shards; bf16: a rounding
+# of the logits' scale), the train step's loss bar (relative)
+SHARD_B, SHARD_T = 4, 512
+SHARD_BARS = {"float32": 1e-6, "bfloat16": 1e-3}
+SHARD_LOSS_BAR = 1e-6
+
+
+def shard_path(root, dev, card):
+    """Phase 14: ``repro_torch.shard`` on a (data=1, model=1) mesh over a
+    one-rank NCCL group -- the ctx forward, prefill, decode and train step
+    against the same calls without ctx, launches counted under ctx, the
+    times of both; ``launch.serve`` at full width; the device hierarchy.
+    Returns the kernels' launches under ctx.  (The dry run's tinyllama-1.1b
+    ``train_4k`` cell on 256 fake ranks took 35.8 s of the card machine's
+    host, over the phase's 30 s for it, so it is not run here.)"""
+    import dataclasses
+    import os
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import dls
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_device_hierarchy, make_test_mesh
+    from repro_torch.models import api
+    from repro_torch.models.layers import dtype_of
+    from repro_torch.models.params import cast
+    from repro_torch.optim import adamw
+    from repro_torch.shard import cache_pspecs, distribute, make_ctx, params_pspecs
+    from repro_torch.train.step import make_train_step
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=dev)
+    launches = {"flash_attention": {}, "ssd_scan": {}}
+    try:
+        mesh = make_test_mesh(1)
+        ctx = make_ctx(mesh)
+        check(tuple(mesh.shape) == (1, 1) and mesh.mesh_dim_names == ("data", "model"),
+              f"shard: the one-card test mesh {mesh}")
+        print(f"shard mesh: {mesh} over a one-rank NCCL group ({card})")
+        rng = np.random.default_rng(0)
+
+        def rel(got, want):
+            got = got.full_tensor() if hasattr(got, "full_tensor") else got
+            return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+        def timed(what, fn_ctx, fn_plain):
+            a = event_and_wall_ms(fn_ctx, f"shard {what} ctx ({card})")
+            b = event_and_wall_ms(fn_plain, f"shard {what} no ctx ({card})")
+            print(f"  shard {what}: ctx - no ctx = {a[0] - b[0]!r} ms CUDA events, "
+                  f"{a[1] - b[1]!r} ms wall")
+
+        def forward_pair(name, kernel, n_layers, dtype, params32, cfg32, batch):
+            cfg = dataclasses.replace(cfg32, dtype=dtype)
+            params = params32 if dtype == "float32" else cast(params32, dtype_of(dtype))
+            sp = distribute(params, params_pspecs(params), mesh)
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            got = api.forward(sp, cfg, batch, ctx=ctx, backend="pallas")
+            torch.cuda.synchronize()
+            n = _build.LAUNCHES[kernel]
+            launches[kernel][f"{name} {dtype} forward"] = n
+            check(n == n_layers, f"shard {name} {dtype}: {n} {kernel} launches "
+                  f"in one ctx forward, want {n_layers}")
+            want = api.forward(params, cfg, batch, backend="pallas")
+            err = rel(got, want)
+            check(err <= SHARD_BARS[dtype] and got.shape == want.shape,
+                  f"shard {name} {dtype}: ctx forward within {SHARD_BARS[dtype]} of max "
+                  f"|logit| ({err!r})")
+            print(f"shard {name} {dtype} forward (pallas, {SHARD_B} x {SHARD_T}): "
+                  f"{n} {kernel} launches under ctx; |ctx - no ctx| = {err!r} of max |logit|")
+            timed(f"{name} {dtype} forward",
+                  lambda: api.forward(sp, cfg, batch, ctx=ctx, backend="pallas"),
+                  lambda: api.forward(params, cfg, batch, backend="pallas"))
+            return sp
+
+        # -- tinyllama-1.1b: forward, prefill, decode, train step --------------
+        cfg32 = dataclasses.replace(get_config(MODEL), dtype="float32")
+        params32 = api.init_params(0, cfg32, device=dev)
+        tokens = torch.from_numpy(rng.integers(0, cfg32.vocab, (SHARD_B, SHARD_T))).to(dev)
+        batch = {"tokens": tokens}
+        for dtype in ("float32", "bfloat16"):
+            sp = forward_pair(MODEL, "flash_attention", cfg32.n_layers, dtype, params32,
+                              cfg32, batch)
+        del sp
+        sp = distribute(params32, params_pspecs(params32), mesh)
+        cache = api.init_cache(cfg32, SHARD_B, SHARD_T + 1, device=dev)
+        scache = distribute(cache, cache_pspecs(cache, mesh, kv_heads=cfg32.n_kv_heads), mesh)
+        _build.reset_launches()
+        lg, cg = api.prefill(sp, cfg32, batch, scache, ctx=ctx, backend="pallas")
+        lw, cw = api.prefill(params32, cfg32, batch, cache, backend="pallas")
+        tok = lw.argmax(-1)
+        dg, _ = api.decode_step(sp, cfg32, tok, cg, ctx=ctx, backend="pallas")
+        dw, _ = api.decode_step(params32, cfg32, tok, cw, backend="pallas")
+        torch.cuda.synchronize()
+        launches["flash_attention"][f"{MODEL} float32 prefill+decode"] = \
+            _build.LAUNCHES["flash_attention"]
+        check(_build.LAUNCHES["flash_attention"] == 0,
+              "shard: a cached attention call never reaches the kernel")
+        e_pre, e_dec = rel(lg, lw), rel(dg, dw)
+        check(e_pre <= SHARD_BARS["float32"] and e_dec <= SHARD_BARS["float32"],
+              f"shard {MODEL}: ctx prefill {e_pre!r}, decode {e_dec!r} of max |logit|")
+        check(bool((lg.full_tensor().argmax(-1) == tok).all()), "shard: the same greedy token")
+        print(f"shard {MODEL} float32 prefill ({SHARD_T} tokens) and one greedy decode "
+              f"step: |ctx - no ctx| = {e_pre!r}, {e_dec!r} of max |logit|")
+        timed(f"{MODEL} float32 prefill",
+              lambda: api.prefill(sp, cfg32, batch, scache, ctx=ctx, backend="pallas"),
+              lambda: api.prefill(params32, cfg32, batch, cache, backend="pallas"))
+        timed(f"{MODEL} float32 decode step",
+              lambda: api.decode_step(sp, cfg32, tok, cg, ctx=ctx, backend="pallas"),
+              lambda: api.decode_step(params32, cfg32, tok, cw, backend="pallas"))
+        del cache, scache, cg, cw
+        torch.cuda.empty_cache()
+        ocfg = adamw.AdamWConfig(warmup_steps=1, total_steps=10)
+        sopt, opt = adamw.init(sp), adamw.init(params32)
+        step_ctx = make_train_step(cfg32, ocfg, ctx=ctx, microbatches=2)
+        step = make_train_step(cfg32, ocfg, microbatches=2)
+        _build.reset_launches()
+        _, _, m_ctx = step_ctx(sp, sopt, batch)
+        _, _, m = step(params32, opt, batch)
+        torch.cuda.synchronize()
+        check(sum(_build.LAUNCHES.values()) == 0, "shard: no kernel launches in a train step")
+        e_loss = abs(float(m_ctx["loss"]) - float(m["loss"])) / abs(float(m["loss"]))
+        check(e_loss <= SHARD_LOSS_BAR,
+              f"shard {MODEL}: ctx train step loss within {SHARD_LOSS_BAR} ({e_loss!r})")
+        print(f"shard {MODEL} float32 train step (2 microbatches of {SHARD_B // 2} x "
+              f"{SHARD_T}): loss {float(m['loss'])!r}, ctx loss relative error {e_loss!r}")
+        timed(f"{MODEL} float32 train step", lambda: step_ctx(sp, sopt, batch),
+              lambda: step(params32, opt, batch))
+        del sp, sopt, opt, params32, step_ctx, step
+        torch.cuda.empty_cache()
+
+        # -- mamba2-370m: the forward through the SSD scan ---------------------
+        scfg32 = dataclasses.replace(get_config(SSM_MODEL), dtype="float32")
+        sparams32 = api.init_params(0, scfg32, device=dev)
+        sbatch = {"tokens": torch.from_numpy(
+            rng.integers(0, scfg32.vocab, (SHARD_B, SHARD_T))).to(dev)}
+        for dtype in ("float32", "bfloat16"):
+            forward_pair(SSM_MODEL, "ssd_scan", scfg32.n_layers, dtype, sparams32, scfg32,
+                         sbatch)
+        del sparams32
+        torch.cuda.empty_cache()
+
+        # -- the device hierarchy -------------------------------------------
+        hw = make_device_hierarchy(capacity=64)
+        s = dls.loop(90, "fac2", P=2, runtime="hierarchical", nodes=1, window=hw)
+        rep = dls.execute(s, None, executor="serial")
+        cov = np.zeros(90, np.int64)
+        for c in rep.claims:
+            cov[c.start:c.start + c.size] += 1
+        check((cov == 1).all() and int(rep.per_pe_iters.sum()) == 90,
+              "shard: the device hierarchy claims each of 90 iterations once")
+        print(f"shard hierarchy: dls.loop(90, fac2, P=2, hierarchical) over "
+              f"make_device_hierarchy(capacity=64) on {torch.cuda.device_count()} card(s): "
+              f"each iteration claimed once, {rep.steps} claims")
+    finally:
+        dist.destroy_process_group()
+
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    # -- launch.serve at full width ----------------------------------------
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch", MODEL,
+                        "--no-reduced", "--requests", "64", "--batch", "8"],
+                       capture_output=True, text=True, timeout=300, cwd=root, env=env)
+    lines = [x for x in r.stdout.splitlines() if x.startswith("[serve]")]
+    check(r.returncode == 0 and len(lines) == 2
+          and lines[0].startswith("[serve] generated (8, 16) in ")
+          and lines[1].startswith("[serve] makespan: DLS(gss)="),
+          f"shard: launch.serve at full width: {r.stdout[-500:]} {r.stderr[-1500:]}")
+    for x in lines:
+        print(f"shard {x} ({card}; {time.perf_counter() - t0:.1f} s with start-up)")
+    print(f"shard phase: {time.perf_counter() - t_phase:.1f} s wall")
+    return launches
+
+
 def main() -> int:
     root = Path(__file__).resolve().parent
     if not (root / "src" / "repro_torch" / "csrc").is_dir():
@@ -2794,16 +2991,21 @@ def main() -> int:
                 for m, v in plane.items()}
     # -- 13. training: the chunked attention, card vs CPU, tinyllama-1.1b --
     training_path(root, dev)
-    # -- 9. the DES (no kernel: the fast path's batch core on the card) -----
-    des_path()
-    # -- 10. replay: device traces, technique="auto", PSIA, the CLI --------
-    replay_path(root, P, costs, sessions, image)
-
+    # -- 14. sharding: the model plane on a one-card mesh, serve, dry run -----
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
+    shard = shard_path(root, dev, card)
+    for r in rows:
+        if r["name"] in shard:
+            r["launches_shard"] = shard[r["name"]]
+    # -- 9. the DES (no kernel: the fast path's batch core on the card) -----
+    des_path()
+    # -- 10. replay: device traces, technique="auto", PSIA, the CLI --------
+    replay_path(root, P, costs, sessions, image)
+
     # -- 11. processes: bands of the image over real OS processes ----------
     next(r for r in rows if r["name"] == "mandelbrot_static").update(
         processes_path(image, plain_image, card))

@@ -1,2 +1,3 @@
-"""Launchers (port of ``repro.launch``): the train CLI.  Mesh, serve and
-the dry run are queued in ROADMAP.md (item 13)."""
+"""Launchers (port of ``repro.launch``): the train and serve CLIs, the
+production and test meshes (``mesh``), and the dry run (``dryrun``, with
+``op_analysis`` in place of ``hlo_analysis``)."""

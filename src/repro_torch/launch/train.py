@@ -5,8 +5,9 @@ On the card:
         --reduced --steps 100 --batch 8 --seq 128 --ckpt <dir>
 
 On the CPU, add ``--device cpu``; without it the driver runs on
-``"cuda"`` and raises where there is no card.  Multi-host training and a
-sharded mesh are not ported (ROADMAP.md section 1, item 13).
+``"cuda"`` and raises where there is no card.  As the reference's, the
+driver trains one host unsharded; ``Trainer(ctx=)`` runs the step over a
+mesh.
 """
 from __future__ import annotations
 

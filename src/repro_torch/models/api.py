@@ -4,7 +4,12 @@ Port of ``repro.models.api``: ``init_params``, ``abstract_params``,
 ``forward`` (with the remat policies), ``init_cache``, ``prefill`` and
 ``decode_step`` for every family (dense with SWA, moe, ssm, hybrid, vlm
 and, through ``encdec``, the enc-dec family), and the modality frontend
-stub ``frontend_stub_embeds``.
+stub ``frontend_stub_embeds``.  ``forward``, ``prefill`` and
+``decode_step`` take the reference's sharding context (``ctx``, default
+``NO_SHARD``); under a context with a mesh the params and the cache are
+``DTensor``s, the logits come back as ``DTensor``s sharded on batch (and
+vocab, for ``forward``), and the batch's tensors are the same global
+tensors on every rank.
 """
 from __future__ import annotations
 
@@ -13,6 +18,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+
+from repro_torch.shard.spec import NO_SHARD, ShardCtx
 
 from . import encdec, lm
 from .layers import dtype_of
@@ -33,13 +40,14 @@ def abstract_params(cfg, seed: int = 0):
     return init_params(seed, cfg, device="meta")
 
 
-def forward(params, cfg, batch, *, backend="xla", remat="none"):
+def forward(params, cfg, batch, *, ctx: ShardCtx = NO_SHARD, backend="xla",
+            remat="none"):
     """Teacher-forced logits (B, T(+Tp), vocab) f32 for a batch dict, on
     the params' device, under the remat policy ``remat`` (``lm``)."""
     if cfg.is_encdec:
         return encdec.forward(params, cfg, batch["src_embeds"], batch["tokens"],
-                              backend=backend, remat=remat)
-    return lm.forward(params, cfg, batch["tokens"],
+                              ctx=ctx, backend=backend, remat=remat)
+    return lm.forward(params, cfg, batch["tokens"], ctx=ctx,
                       prefix_embeds=batch.get("prefix_embeds"), backend=backend,
                       remat=remat)
 
@@ -54,20 +62,20 @@ def init_cache(cfg, batch_size, max_len, src_len: Optional[int] = None, dtype=No
     return lm.init_cache(cfg, batch_size, max_len, dtype, device=device)
 
 
-def prefill(params, cfg, batch, cache, *, backend="xla"):
+def prefill(params, cfg, batch, cache, *, ctx: ShardCtx = NO_SHARD, backend="xla"):
     """(last-position logits (B, vocab) f32, cache) for a batch dict."""
     if cfg.is_encdec:
         return encdec.prefill(params, cfg, batch["src_embeds"], batch["tokens"],
-                              cache, backend=backend)
-    return lm.prefill(params, cfg, batch["tokens"], cache,
+                              cache, ctx=ctx, backend=backend)
+    return lm.prefill(params, cfg, batch["tokens"], cache, ctx=ctx,
                       prefix_embeds=batch.get("prefix_embeds"), backend=backend)
 
 
-def decode_step(params, cfg, token, cache, *, backend="xla"):
+def decode_step(params, cfg, token, cache, *, ctx: ShardCtx = NO_SHARD, backend="xla"):
     """(logits (B, vocab) f32, cache) for one new token per sequence."""
     if cfg.is_encdec:
-        return encdec.decode_step(params, cfg, token, cache, backend=backend)
-    return lm.decode_step(params, cfg, token, cache, backend=backend)
+        return encdec.decode_step(params, cfg, token, cache, ctx=ctx, backend=backend)
+    return lm.decode_step(params, cfg, token, cache, ctx=ctx, backend=backend)
 
 
 # ---------------------------------------------------------------------------

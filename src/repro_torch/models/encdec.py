@@ -15,12 +15,19 @@ Decode caches: per-layer self-attn KV (the append/ring logic of
 ``layers.attention_block``) plus cross-attention K/V precomputed ONCE from
 the encoder output at prefill time (recomputing them per step would turn
 decode into prefill), both in the reference's stacked layout.
+
+Every entry point takes the reference's sharding context (``ctx``); under
+a mesh the source embeddings are cut to each rank's batch rows, and the
+cross K/V are projected whole on every model rank and placed in the
+cache's own layout.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
+
+from repro_torch.shard.spec import NO_SHARD, ShardCtx, batch_dtensor, local, on_mesh
 
 from . import layers as L
 from .lm import _embed, _generator, _head, _kv_slice, _remat, _stack_kv, shared_block_init
@@ -60,19 +67,22 @@ def init_params(key, cfg, *, device=None):
     return p
 
 
-def encode(params, cfg, src_embeds, *, backend="xla", remat: str = "none"):
+def encode(params, cfg, src_embeds, *, ctx: ShardCtx = NO_SHARD, backend="xla",
+           remat: str = "none"):
     """The encoder's output (B, S_src, d), normed.  ``remat`` as
     ``lm._remat`` takes it: per layer, a group policy leaves the layers
     as they are (the reference's encoder does the same)."""
     h = torch.as_tensor(src_embeds, device=params["embed"].device)
+    if on_mesh(ctx):
+        h = batch_dtensor(h, ctx)
     positions = torch.arange(h.shape[1], device=h.device)
 
     def body(h, lp):
         a, _ = L.attention_block(
-            lp["attn"], L.rmsnorm(h, lp["ln1"], cfg.norm_eps), cfg,
+            lp["attn"], L.rmsnorm(h, lp["ln1"], cfg.norm_eps), cfg, ctx=ctx,
             positions=positions, causal=False, backend=backend)
         h = h + a
-        return h + L.mlp_block(lp["mlp"], L.rmsnorm(h, lp["ln2"], cfg.norm_eps))
+        return h + L.mlp_block(lp["mlp"], L.rmsnorm(h, lp["ln2"], cfg.norm_eps), ctx=ctx)
 
     body = _remat(body, remat)
     for lp in params["enc_layers"]:
@@ -80,40 +90,41 @@ def encode(params, cfg, src_embeds, *, backend="xla", remat: str = "none"):
     return L.rmsnorm(h, params["enc_norm"], cfg.norm_eps)
 
 
-def _dec_block(lp, h, cfg, *, positions, enc_out=None, cross_kv=None,
-               kv=None, pos=None, backend="xla"):
+def _dec_block(lp, h, cfg, *, ctx: ShardCtx = NO_SHARD, positions, enc_out=None,
+               cross_kv=None, kv=None, pos=None, backend="xla"):
     a, new_kv = L.attention_block(
-        lp["self_attn"], L.rmsnorm(h, lp["ln1"], cfg.norm_eps), cfg,
+        lp["self_attn"], L.rmsnorm(h, lp["ln1"], cfg.norm_eps), cfg, ctx=ctx,
         positions=positions, causal=True, kv_cache=kv, cache_pos=pos,
         backend=backend)
     h = h + a
     hn = L.rmsnorm(h, lp["ln2"], cfg.norm_eps)
     if cross_kv is not None:
-        h = h + L.attention_with_kv(lp["cross_attn"], hn, cross_kv[0], cross_kv[1], cfg)
+        h = h + L.attention_with_kv(lp["cross_attn"], hn, cross_kv[0], cross_kv[1], cfg,
+                                    ctx=ctx)
     else:
-        x, _ = L.attention_block(lp["cross_attn"], hn, cfg, causal=False,
+        x, _ = L.attention_block(lp["cross_attn"], hn, cfg, ctx=ctx, causal=False,
                                  xattn_kv=enc_out, backend=backend)
         h = h + x
-    h = h + L.mlp_block(lp["mlp"], L.rmsnorm(h, lp["ln3"], cfg.norm_eps))
+    h = h + L.mlp_block(lp["mlp"], L.rmsnorm(h, lp["ln3"], cfg.norm_eps), ctx=ctx)
     return h, new_kv
 
 
-def forward(params, cfg, src_embeds, tgt_tokens, *, backend="xla",
-            remat: str = "none", logits_f32=True):
+def forward(params, cfg, src_embeds, tgt_tokens, *, ctx: ShardCtx = NO_SHARD,
+            backend="xla", remat: str = "none", logits_f32=True):
     """Teacher-forced logits (B, T_tgt, vocab); ``remat`` for the encoder
     and the decoder layers as in ``encode``."""
-    enc_out = encode(params, cfg, src_embeds, backend=backend, remat=remat)
-    h = _embed(params, tgt_tokens)
+    enc_out = encode(params, cfg, src_embeds, ctx=ctx, backend=backend, remat=remat)
+    h = _embed(params, tgt_tokens, ctx=ctx)
     positions = torch.arange(h.shape[1], device=h.device)
 
     def body(h, lp):
-        return _dec_block(lp, h, cfg, positions=positions, enc_out=enc_out,
+        return _dec_block(lp, h, cfg, ctx=ctx, positions=positions, enc_out=enc_out,
                           backend=backend)[0]
 
     body = _remat(body, remat)
     for lp in params["dec_layers"]:
         h = body(h, lp)
-    logits = _head(params, cfg, h)
+    logits = _head(params, cfg, h, ctx)
     return logits.float() if logits_f32 else logits
 
 
@@ -132,35 +143,40 @@ def init_cache(cfg, batch, max_len, src_len, dtype=None, *, device=None):
             "kv": zeros(max_len), "cross": zeros(src_len)}
 
 
-def prefill(params, cfg, src_embeds, tgt_tokens, cache, *, backend="xla"):
+def prefill(params, cfg, src_embeds, tgt_tokens, cache, *, ctx: ShardCtx = NO_SHARD,
+            backend="xla"):
     """Encode the source, fill cross-KV, consume the target prompt."""
-    enc_out = encode(params, cfg, src_embeds, backend=backend)
+    enc_out = encode(params, cfg, src_embeds, ctx=ctx, backend=backend)
     ks, vs = [], []
     for lp in params["dec_layers"]:
-        k, v = L.project_kv(lp["cross_attn"], enc_out, cfg)
+        k, v = L.project_kv(lp["cross_attn"], enc_out, cfg, ctx=ctx)
         ks.append(k.to(cache["cross"]["k"].dtype))
         vs.append(v.to(cache["cross"]["v"].dtype))
-    cache = dict(cache, cross={"k": torch.stack(ks), "v": torch.stack(vs)})
-    return _dec_pass(params, cfg, tgt_tokens, cache, backend=backend)
+    cross = {"k": torch.stack(ks), "v": torch.stack(vs)}
+    if on_mesh(ctx):  # the cache's own layout
+        cross = {n: t.redistribute(ctx.mesh, cache["cross"][n].placements)
+                 for n, t in cross.items()}
+    cache = dict(cache, cross=cross)
+    return _dec_pass(params, cfg, tgt_tokens, cache, ctx=ctx, backend=backend)
 
 
-def decode_step(params, cfg, token, cache, *, backend="xla"):
+def decode_step(params, cfg, token, cache, *, ctx: ShardCtx = NO_SHARD, backend="xla"):
     """One new token (B,) or (B,1); returns (logits (B, vocab) f32, cache)."""
     token = torch.as_tensor(token, device=params["embed"].device)
     if token.dim() == 1:
         token = token[:, None]
-    return _dec_pass(params, cfg, token, cache, backend=backend)
+    return _dec_pass(params, cfg, token, cache, ctx=ctx, backend=backend)
 
 
-def _dec_pass(params, cfg, tokens, cache, *, backend):
-    h = _embed(params, tokens)
+def _dec_pass(params, cfg, tokens, cache, *, ctx: ShardCtx = NO_SHARD, backend):
+    h = _embed(params, tokens, ctx=ctx)
     pos = cache["pos"]
-    positions = pos + torch.arange(h.shape[1], device=h.device)
+    positions = local(pos) + torch.arange(h.shape[1], device=h.device)
     kvs = []
     for i, lp in enumerate(params["dec_layers"]):
-        h, nkv = _dec_block(lp, h, cfg, positions=positions,
+        h, nkv = _dec_block(lp, h, cfg, ctx=ctx, positions=positions,
                             cross_kv=(cache["cross"]["k"][i], cache["cross"]["v"][i]),
                             kv=_kv_slice(cache, i), pos=pos, backend=backend)
         kvs.append(nkv)
     cache = dict(cache, kv=_stack_kv(kvs), pos=pos + h.shape[1])
-    return _head(params, cfg, h[:, -1:])[:, 0].float(), cache
+    return _head(params, cfg, h[:, -1:], ctx)[:, 0].float(), cache

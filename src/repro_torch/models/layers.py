@@ -37,9 +37,24 @@ does; the (Tq, Tk) scores never exist whole.
 The ``"pallas"`` kernels are not differentiable, as the reference's are
 not: under grad they raise (training uses ``"xla"``).
 
-The MoE dispatch runs as one group (``G = 1``): the reference's
-group-local dispatch only differs under a sharding context, which is not
-ported (ROADMAP.md section 1, item 13).
+Every block takes the reference's sharding context (``ctx``, default
+``NO_SHARD``: plain tensors, nothing changes).  Under a context with a
+mesh the params and the activations between blocks are ``DTensor``s, and
+each block's arithmetic runs on the local shards inside ``local_map``
+(``repro_torch.shard.spec.local_call``): weights enter with their FSDP
+dim gathered and their TP dim local; a block whose heads (ffn hidden,
+experts) divide the model axis splits them across it, and its row-parallel
+product leaves a ``Partial`` sum that the ``cs`` at the block's exit
+all-reduces.  GQA with ``Hkv % |model| != 0`` takes k and v replicated on
+the model axis, every rank writing the whole cache and attending with
+the kv heads of its own q heads.  Both kernels run unchanged on the
+local (batch, head) shards.
+
+The MoE dispatch runs in ``G`` groups as the reference's: ``G =
+ctx.batch_size_product`` from 4096 tokens under an enabled context, else
+1.  On a mesh the experts split across the model axis and each rank
+combines its own experts' outputs into a partial sum (the reference's
+two all-to-alls become one all-reduce).
 """
 from __future__ import annotations
 
@@ -47,6 +62,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import flash_attention
+from repro_torch.shard.spec import (
+    NO_SHARD, ShardCtx, batch_split, cs, local, local_call, mesh_sizes, model_coord,
+    on_mesh, weight, with_model)
 
 NEG_INF = -1e30
 
@@ -344,6 +362,7 @@ def attention_block(
     x,  # (B, T, d)
     cfg,
     *,
+    ctx: ShardCtx = NO_SHARD,
     positions=None,  # (T,) absolute positions for RoPE
     causal: bool = True,
     kv_cache=None,  # {"k","v": (B,S,Hkv,hd)}
@@ -354,8 +373,21 @@ def attention_block(
     """Returns (out (B,T,d), updated_cache | None)."""
     if backend not in ("xla", "pallas"):
         raise ValueError(f"backend must be 'xla' or 'pallas', got {backend!r}")
+    kw = dict(positions=positions, causal=causal, kv_cache=kv_cache,
+              cache_pos=cache_pos, xattn_kv=xattn_kv, backend=backend)
+    if on_mesh(ctx):
+        return _attention_sharded(params, x, cfg, ctx, **kw)
+    return _attention(params, x, cfg, **kw)
+
+
+def _attention(params, x, cfg, *, positions, causal, kv_cache, cache_pos,
+               xattn_kv, backend, kv_heads=None):
+    """The attention block on whole tensors, or on one rank's shards: the
+    head counts come from the weights' widths.  ``kv_heads`` = (k0, k1)
+    attends with those kv heads only, after the cache took all of them."""
     B, T, d = x.shape
-    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    hd = cfg.hd
+    H, Hkv = params["wq"].shape[1] // hd, params["wk"].shape[1] // hd
 
     q = (x @ params["wq"]).reshape(B, T, H, hd)
     kv_src = x if xattn_kv is None else xattn_kv
@@ -388,6 +420,8 @@ def attention_block(
         else:
             k, v = ck, cv
         row_pos = pos + torch.arange(T, device=x.device)
+    if kv_heads is not None:
+        k, v = k[:, :, kv_heads[0]:kv_heads[1]], v[:, :, kv_heads[0]:kv_heads[1]]
 
     if backend == "pallas" and kv_cache is None and xattn_kv is None:
         o = flash_attention(
@@ -414,24 +448,109 @@ def attention_block(
     return out, new_cache
 
 
-def project_kv(params, src, cfg):
-    """Precompute cross-attention K/V from encoder output (no RoPE)."""
-    B, S, _ = src.shape
-    k = (src @ params["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.hd)
-    v = (src @ params["wv"]).reshape(B, S, cfg.n_kv_heads, cfg.hd)
-    return k, v
+def _heads_plan(cfg, ctx: ShardCtx):
+    """How attention splits across the model axis: (tp, kv_local,
+    kv_heads).  ``tp``: each rank takes H/|model| q heads, which must
+    each map to whole kv heads; ``kv_local``: the kv heads divide the axis
+    too (the cache shards on heads); else ``kv_heads`` = the kv heads of
+    this rank's q heads, out of k and v computed whole on every rank."""
+    r, m = model_coord(ctx)
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    g, hl = H // Hkv, H // m
+    if m == 1 or H % m or (hl % g and g % hl):
+        return False, False, None
+    if Hkv % m == 0:
+        return True, True, None
+    return True, False, (r * hl // g, ((r + 1) * hl - 1) // g + 1)
 
 
-def attention_with_kv(params, x, k, v, cfg):
-    """Cross-attention against precomputed K/V (decode-time path)."""
+def _attention_sharded(params, x, cfg, ctx, *, positions, causal, kv_cache,
+                       cache_pos, xattn_kv, backend):
+    """``_attention`` on each rank's (batch, head) shards.  The cache
+    enters sharded on kv heads where they are local, whole on the model
+    axis otherwise, and leaves in the layout it came in."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    tp, kv_local, kv_heads = _heads_plan(cfg, ctx)
+    col, row, kv_col = (1, 0, 1) if tp else (None, None, None)
+    if not kv_local:
+        kv_col = None
+    w = {"wq": weight(params["wq"], ctx, col), "wk": weight(params["wk"], ctx, kv_col),
+         "wv": weight(params["wv"], ctx, kv_col), "wo": weight(params["wo"], ctx, row)}
+    cache = None
+    if kv_cache is not None:
+        heads_pl = Shard(2) if kv_local else Replicate()
+        cache = {n: t.redistribute(ctx.mesh, with_model(t, ctx, heads_pl))
+                 for n, t in kv_cache.items()}
+
+    def fn(w, x, cache, src, pos):
+        out, nc = _attention(w, x, cfg, positions=positions, causal=causal,
+                             kv_cache=cache, cache_pos=pos, xattn_kv=src,
+                             backend=backend, kv_heads=kv_heads)
+        return out if nc is None else (out, nc["k"], nc["v"])
+
+    out_pl = with_model(x, ctx, Partial() if tp else Replicate())
+    outs = local_call(
+        fn, ctx, out_pl if cache is None else (out_pl, cache["k"].placements,
+                                              cache["v"].placements),
+        (w, x, cache, xattn_kv, local(cache_pos)), rows=x, tp=tp)
+    if cache is None:
+        return cs(outs, "batch", None, None, ctx=ctx), None
+    out, ck, cv = outs
+    new_cache = {"k": ck.redistribute(ctx.mesh, kv_cache["k"].placements),
+                 "v": cv.redistribute(ctx.mesh, kv_cache["v"].placements)}
+    return cs(out, "batch", None, None, ctx=ctx), new_cache
+
+
+def project_kv(params, src, cfg, *, ctx: ShardCtx = NO_SHARD):
+    """Precompute cross-attention K/V from encoder output (no RoPE); on a
+    mesh, every kv head on every model rank (the cache's layout is the
+    caller's)."""
+    def fn(wk, wv, src):
+        B, S, _ = src.shape
+        return ((src @ wk).reshape(B, S, cfg.n_kv_heads, cfg.hd),
+                (src @ wv).reshape(B, S, cfg.n_kv_heads, cfg.hd))
+
+    if not on_mesh(ctx):
+        return fn(params["wk"], params["wv"], src)
+    from torch.distributed.tensor import Replicate
+
+    pl = with_model(src, ctx, Replicate())
+    return local_call(fn, ctx, (pl, pl),
+                      (weight(params["wk"], ctx, None), weight(params["wv"], ctx, None), src),
+                      rows=src)
+
+
+def _attention_with_kv(params, x, k, v, cfg, kv_heads=None):
     B, T, _ = x.shape
-    H, hd = cfg.n_heads, cfg.hd
+    hd = cfg.hd
+    H = params["wq"].shape[1] // hd
     q = (x @ params["wq"]).reshape(B, T, H, hd)
+    if kv_heads is not None:
+        k, v = k[:, :, kv_heads[0]:kv_heads[1]], v[:, :, kv_heads[0]:kv_heads[1]]
     if T > 1 and k.shape[1] >= CHUNKED_ATTN_THRESHOLD:
         o = _sdpa_chunked(q, k, v, causal=False, window=None)
     else:
         o = _sdpa_xla(q, k, v, causal=False, window=None)
     return o.reshape(B, T, H * hd) @ params["wo"]
+
+
+def attention_with_kv(params, x, k, v, cfg, *, ctx: ShardCtx = NO_SHARD):
+    """Cross-attention against precomputed K/V (decode-time path)."""
+    if not on_mesh(ctx):
+        return _attention_with_kv(params, x, k, v, cfg)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    tp, kv_local, kv_heads = _heads_plan(cfg, ctx)
+    heads_pl = Shard(2) if kv_local else Replicate()
+    k, v = (t.redistribute(ctx.mesh, with_model(t, ctx, heads_pl)) for t in (k, v))
+    w = {"wq": weight(params["wq"], ctx, 1 if tp else None),
+         "wo": weight(params["wo"], ctx, 0 if tp else None)}
+    out = local_call(
+        lambda w, x, k, v: _attention_with_kv(w, x, k, v, cfg, kv_heads),
+        ctx, with_model(x, ctx, Partial() if tp else Replicate()), (w, x, k, v),
+        rows=x, tp=tp)
+    return cs(out, "batch", None, None, ctx=ctx)
 
 
 # ---------------------------------------------------------------------------
@@ -447,9 +566,23 @@ def mlp_init(gen, d, ff, dtype, device=None):
     }
 
 
-def mlp_block(params, x):
+def _mlp(params, x):
     h = silu(x @ params["wg"]) * (x @ params["wu"])
     return h @ params["wd"]
+
+
+def mlp_block(params, x, *, ctx: ShardCtx = NO_SHARD):
+    if not on_mesh(ctx):
+        return _mlp(params, x)
+    from torch.distributed.tensor import Partial, Replicate
+
+    tp = ctx.model_size > 1 and params["wg"].shape[1] % ctx.model_size == 0
+    w = {"wg": weight(params["wg"], ctx, 1 if tp else None),
+         "wu": weight(params["wu"], ctx, 1 if tp else None),
+         "wd": weight(params["wd"], ctx, 0 if tp else None)}
+    out = local_call(_mlp, ctx, with_model(x, ctx, Partial() if tp else Replicate()),
+                     (w, x), rows=x, tp=tp)
+    return cs(out, "batch", None, None, ctx=ctx)
 
 
 # ---------------------------------------------------------------------------
@@ -489,51 +622,107 @@ def moe_capacity(cfg, n: int) -> int:
                    min(n, 256)))
 
 
-def moe_block(params, x, cfg):
-    """Top-k capacity MoE, the reference's dispatch as one group.
+def moe_groups(ctx: ShardCtx, N: int) -> int:
+    """The dispatch's group count for ``N`` tokens: the data-parallel
+    degree from 4096 tokens under an enabled context, else 1, halved
+    while it does not divide ``N``."""
+    G = ctx.batch_size_product if (ctx.enabled and N >= 4096) else 1
+    while N % G:  # awkward batch extents: fall back to fewer groups
+        G //= 2
+    return G
 
-    Every (token, choice) pair in token-major order takes the next slot of
-    its expert; pairs past the capacity ``C`` are dropped (their weight is
-    0), and that order decides which.  The experts run on their (E, C, d)
-    slot tables in the model's dtype; each pair's output is weighted and
-    summed over its K choices.
-    """
+
+def _moe_dispatch(params, x, cfg, G, experts=None):
+    """The routed experts' output (B, T, d) with the tokens in ``G``
+    groups, each routed, queued and combined on its own.  ``experts`` =
+    (e0, e1) runs those experts only (``params``' expert leaves hold just
+    them): the output is then this rank's part of the sum over experts."""
     B, T, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
-    n = B * T
-    xg = x.reshape(n, d)
+    n = B * T // G  # tokens per group
+    e0, e1 = experts or (0, E)
+    xg = x.reshape(G, n, d)
 
-    gates = torch.softmax(xg.float() @ params["router"], dim=-1)  # (n, E) f32
-    top_w, top_e = top_k(gates, K)  # (n, K)
+    gates = torch.softmax(xg.float() @ params["router"], dim=-1)  # (G, n, E) f32
+    top_w, top_e = top_k(gates, K)  # (G, n, K)
     top_w = top_w / top_w.sum(-1, keepdim=True).clamp(min=1e-9)
 
     C = moe_capacity(cfg, n)
-    flat_e = top_e.reshape(n * K)
-    onehot = F.one_hot(flat_e, E)  # (n*K, E)
-    # position of each pair in its expert's queue (token-major order)
-    pos_in_e = torch.cumsum(onehot, dim=0).gather(1, flat_e[:, None])[:, 0] - 1
+    flat_e = top_e.reshape(G, n * K)
+    onehot = F.one_hot(flat_e, E)  # (G, n*K, E)
+    # position of each pair in its expert's queue (token-major order, per group)
+    pos_in_e = torch.cumsum(onehot, dim=1).gather(2, flat_e[..., None])[..., 0] - 1
     keep = pos_in_e < C
     # a dropped pair goes to the spare last index and is cut away: dropped,
     # never clipped into a real slot
     slot_of_pair = torch.where(keep, flat_e * C + pos_in_e, E * C)
 
-    # slot table: token row n = empty (points at the pad row)
-    tok_ids = torch.arange(n, device=x.device).repeat_interleave(K)
-    slot_tok = torch.full((E * C + 1,), n, dtype=torch.long, device=x.device)
-    slot_tok = slot_tok.scatter(0, slot_of_pair, tok_ids)[:E * C]
+    # group-local slot table: token row n = empty (points at the pad row)
+    tok_ids = torch.arange(n, device=x.device).repeat_interleave(K).expand(G, n * K)
+    slot_tok = torch.full((G, E * C + 1), n, dtype=torch.long, device=x.device)
+    slot_tok = slot_tok.scatter(1, slot_of_pair, tok_ids)[:, e0 * C:e1 * C]
 
-    xpad = torch.cat([xg, xg.new_zeros((1, d))])
-    xe = xpad[slot_tok].reshape(E, C, d)
+    El = e1 - e0
+    xpad = torch.cat([xg, xg.new_zeros((G, 1, d))], dim=1)
+    xe = xpad.gather(1, slot_tok[..., None].expand(G, El * C, d))
+    xe = xe.reshape(G, El, C, d).transpose(0, 1).reshape(El, G * C, d)
     h = silu(torch.matmul(xe, params["wg"])) * torch.matmul(xe, params["wu"])
-    ye = torch.matmul(h, params["wd"]).reshape(E * C, d)  # (E*C, d)
+    ye = torch.matmul(h, params["wd"])  # (El, G*C, d)
+    ye = ye.reshape(El, G, C, d).transpose(0, 1).reshape(G, El * C, d)
 
     # combine: each pair's slot output, weighted, summed over its K choices
-    w_flat = torch.where(keep, top_w.reshape(n * K), 0.0)
-    ye_pad = torch.cat([ye, ye.new_zeros((1, d))])
-    y_pairs = ye_pad[slot_of_pair] * w_flat[:, None].to(ye.dtype)
-    y = y_pairs.reshape(n, K, d).sum(dim=1)
+    mine = keep & (flat_e >= e0) & (flat_e < e1)
+    w_flat = torch.where(mine, top_w.reshape(G, n * K), 0.0)
+    slot = torch.where(mine, slot_of_pair - e0 * C, El * C)
+    ye_pad = torch.cat([ye, ye.new_zeros((G, 1, d))], dim=1)
+    y_pairs = ye_pad.gather(1, slot[..., None].expand(G, n * K, d))
+    y_pairs = y_pairs * w_flat[..., None].to(ye.dtype)
+    return y_pairs.reshape(G, n, K, d).sum(dim=2).reshape(B, T, d).to(x.dtype)
 
-    out = y.reshape(B, T, d).to(x.dtype)
+
+def moe_block(params, x, cfg, *, ctx: ShardCtx = NO_SHARD):
+    """Top-k capacity MoE, the reference's group-local dispatch.
+
+    The tokens run in ``G = moe_groups(ctx, B*T)`` groups.  In each, every
+    (token, choice) pair in token-major order takes the next slot of its
+    expert; pairs past the capacity ``C`` (of the group's tokens) are
+    dropped (their weight is 0), and that order decides which.  The
+    experts run on their slot tables in the model's dtype; each pair's
+    output is weighted and summed over its K choices.
+
+    On a mesh each rank dispatches the groups of its own batch rows (all
+    of them, redundantly, where the groups do not line up with the batch
+    shards), runs its experts only, and leaves a partial sum over experts.
+    """
+    B, T, d = x.shape
+    G = moe_groups(ctx, B * T)
+    if not on_mesh(ctx):
+        out = _moe_dispatch(params, x, cfg, G)
+        if cfg.n_shared_experts:
+            out = out + _mlp(params["shared"], x)
+        return out
+    from torch.distributed.tensor import Partial, Replicate
+
+    sizes = mesh_sizes(ctx.mesh)
+    shards = 1
+    for a in batch_split(x, ctx):
+        shards *= sizes[a]
+    if G % shards:  # the groups span batch shards: every rank takes them all
+        x_in, g_local = x.redistribute(ctx.mesh, [Replicate()] * ctx.mesh.ndim), G
+    else:
+        x_in, g_local = x, G // shards
+    r, m = model_coord(ctx)
+    E = cfg.n_experts
+    tp = m > 1 and E % m == 0
+    experts = (r * E // m, (r + 1) * E // m) if tp else None
+    w = {"router": weight(params["router"], ctx, None)}
+    for n in ("wg", "wu", "wd"):
+        w[n] = weight(params[n], ctx, 0 if tp else None)
+    out = local_call(
+        lambda w, x: _moe_dispatch(w, x, cfg, g_local, experts), ctx,
+        with_model(x_in, ctx, Partial() if tp else Replicate()), (w, x_in),
+        rows=x_in, tp=tp)
+    out = cs(out, "batch", None, None, ctx=ctx)
     if cfg.n_shared_experts:
-        out = out + mlp_block(params["shared"], x)
-    return out
+        out = out + mlp_block(params["shared"], x, ctx=ctx)
+    return cs(out, "batch", None, None, ctx=ctx)

@@ -28,6 +28,16 @@ layers checkpointed, G lowered until it divides the depth).  The hybrid
 applies the policy to its mamba layers only, never to the shared block,
 and a group policy leaves them as they are, as the reference's
 ``_remat`` does.  The policies change memory, never values.
+
+Every entry point takes the reference's sharding context (``ctx``,
+default ``NO_SHARD``).  Under a context with a mesh the params are
+``DTensor``s placed by ``repro_torch.shard.params_pspecs``, the cache
+``DTensor``s placed by ``cache_pspecs``, and the tokens (or prefix) the
+same global tensors on every rank: the embedding cuts each rank's batch
+rows, gathers its table (vocab-sharded on the model axis, where the
+reference's GSPMD would not gather it) and looks them up; the head leaves
+the logits sharded on vocab over the model axis, as the reference's
+``cs``.  The blocks run on local shards (``layers``, ``ssm``).
 """
 from __future__ import annotations
 
@@ -36,6 +46,8 @@ from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from repro_torch.kernels import _build
+from repro_torch.shard.spec import (
+    NO_SHARD, ShardCtx, batch_dtensor, cs, local, local_call, on_mesh, weight, with_model)
 
 from . import layers as L
 from . import ssm as SSM
@@ -115,42 +127,67 @@ def init_params(key, cfg, *, device=None):
 # ---------------------------------------------------------------------------
 
 
-def _tblock(p, h, cfg, *, positions, causal, kv=None, pos=None, backend):
+def _tblock(p, h, cfg, *, ctx: ShardCtx = NO_SHARD, positions, causal, kv=None,
+            pos=None, backend):
     """Transformer block: attn + (mlp | moe) with pre-norms and residuals."""
     a, new_kv = L.attention_block(
-        p["attn"], L.rmsnorm(h, p["ln1"], cfg.norm_eps), cfg,
+        p["attn"], L.rmsnorm(h, p["ln1"], cfg.norm_eps), cfg, ctx=ctx,
         positions=positions, causal=causal, kv_cache=kv, cache_pos=pos,
         backend=backend,
     )
     h = h + a
     hn = L.rmsnorm(h, p["ln2"], cfg.norm_eps)
     if "moe" in p:
-        return h + L.moe_block(p["moe"], hn, cfg), new_kv
-    return h + L.mlp_block(p["mlp"], hn), new_kv
+        return h + L.moe_block(p["moe"], hn, cfg, ctx=ctx), new_kv
+    return h + L.mlp_block(p["mlp"], hn, ctx=ctx), new_kv
 
 
-def _ssm_layer(p, h, cfg, *, cache=None, backend):
+def _ssm_layer(p, h, cfg, *, ctx: ShardCtx = NO_SHARD, cache=None, backend):
     o, new_cache = SSM.ssm_block(
-        p["ssm"], L.rmsnorm(h, p["ln"], cfg.norm_eps), cfg,
+        p["ssm"], L.rmsnorm(h, p["ln"], cfg.norm_eps), cfg, ctx=ctx,
         cache=cache, backend=backend,
     )
     return h + o, new_cache
 
 
-def _embed(params, tokens, prefix_embeds=None):
-    """Token embeddings, with the VLM/audio frontend's prefix embeddings
-    (B, Tp, d) in front when given."""
-    embed = params["embed"]
-    h = embed[torch.as_tensor(tokens, device=embed.device).long()]
-    if prefix_embeds is not None:
-        prefix = torch.as_tensor(prefix_embeds, device=embed.device)
+def _lookup(embed, tokens, prefix=None):
+    h = embed[tokens.long()]
+    if prefix is not None:
         h = torch.cat([prefix.to(h.dtype), h], dim=1)
     return h
 
 
-def _head(params, cfg, h):
+def _embed(params, tokens, prefix_embeds=None, ctx: ShardCtx = NO_SHARD):
+    """Token embeddings, with the VLM/audio frontend's prefix embeddings
+    (B, Tp, d) in front when given."""
+    embed = params["embed"]
+    tokens = torch.as_tensor(tokens, device=embed.device)
+    prefix = (None if prefix_embeds is None
+              else torch.as_tensor(prefix_embeds, device=embed.device))
+    if not on_mesh(ctx):
+        return _lookup(embed, tokens, prefix)
+    tokens = batch_dtensor(tokens, ctx)
+    if prefix is not None:
+        prefix = batch_dtensor(prefix, ctx)
+    h = local_call(_lookup, ctx, tokens.placements,
+                   (weight(embed, ctx, None), tokens, prefix), rows=tokens)
+    return cs(h, "batch", None, None, ctx=ctx)
+
+
+def _head(params, cfg, h, ctx: ShardCtx = NO_SHARD):
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    return h @ (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
+    if not on_mesh(ctx):
+        return h @ (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
+    from torch.distributed.tensor import Replicate, Shard
+
+    tp = ctx.model_size > 1 and cfg.vocab % ctx.model_size == 0
+    if cfg.tie_embeddings:
+        w, fn = weight(params["embed"], ctx, 0 if tp else None), lambda h, w: h @ w.T
+    else:
+        w, fn = weight(params["lm_head"], ctx, 1 if tp else None), lambda h, w: h @ w
+    logits = local_call(fn, ctx, with_model(h, ctx, Shard(2) if tp else Replicate()), (h, w),
+                        rows=h, tp=tp)
+    return cs(logits, "batch", None, "model", ctx=ctx)
 
 
 def _groups(cfg, layers):
@@ -219,17 +256,18 @@ def _run_layers(body, h, layers, remat: str):
 # ---------------------------------------------------------------------------
 
 
-def forward(params, cfg, tokens, *, prefix_embeds=None, backend: str = "xla",
-            remat: str = "none", logits_f32: bool = True):
+def forward(params, cfg, tokens, *, ctx: ShardCtx = NO_SHARD, prefix_embeds=None,
+            backend: str = "xla", remat: str = "none", logits_f32: bool = True):
     """Token logits (B, T(+Tp), vocab) on the params' device."""
-    h = _embed(params, tokens, prefix_embeds)
+    h = _embed(params, tokens, prefix_embeds, ctx)
     positions = torch.arange(h.shape[1], device=h.device)
 
     def tblock(h, lp):
-        return _tblock(lp, h, cfg, positions=positions, causal=True, backend=backend)[0]
+        return _tblock(lp, h, cfg, ctx=ctx, positions=positions, causal=True,
+                       backend=backend)[0]
 
     def ssm_layer(h, lp):
-        return _ssm_layer(lp, h, cfg, backend=backend)[0]
+        return _ssm_layer(lp, h, cfg, ctx=ctx, backend=backend)[0]
 
     if cfg.family in ("dense", "vlm", "moe"):
         h = _run_layers(tblock, h, params["layers"], remat)
@@ -243,7 +281,7 @@ def forward(params, cfg, tokens, *, prefix_embeds=None, backend: str = "xla",
             h = tblock(h, params["shared"])
     else:
         raise ValueError(cfg.family)
-    logits = _head(params, cfg, h)
+    logits = _head(params, cfg, h, ctx)
     return logits.float() if logits_f32 else logits
 
 
@@ -293,7 +331,7 @@ def _stack_kv(kvs):
             "v": torch.stack([c["v"] for c in kvs])}
 
 
-def _step(params, cfg, h, cache, *, positions, backend):
+def _step(params, cfg, h, cache, *, ctx: ShardCtx = NO_SHARD, positions, backend):
     """One full pass over the stack with caches; h (B, T, d).  Returns a
     new cache; the one passed in is not modified."""
     pos = cache["pos"]
@@ -301,7 +339,7 @@ def _step(params, cfg, h, cache, *, positions, backend):
     if cfg.family in ("dense", "vlm", "moe"):
         kvs = []
         for i, lp in enumerate(params["layers"]):
-            h, nkv = _tblock(lp, h, cfg, positions=positions, causal=True,
+            h, nkv = _tblock(lp, h, cfg, ctx=ctx, positions=positions, causal=True,
                              kv=_kv_slice(cache, i), pos=pos, backend=backend)
             kvs.append(nkv)
         new_cache["kv"] = _stack_kv(kvs)
@@ -313,11 +351,11 @@ def _step(params, cfg, h, cache, *, positions, backend):
             for lp in group:
                 i = len(states)
                 c = {"state": cache["ssm"]["state"][i], "conv": cache["ssm"]["conv"][i]}
-                h, nc = _ssm_layer(lp, h, cfg, cache=c, backend=backend)
+                h, nc = _ssm_layer(lp, h, cfg, ctx=ctx, cache=c, backend=backend)
                 states.append(nc["state"])
                 convs.append(nc["conv"])
             if cfg.family == "hybrid":
-                h, nkv = _tblock(params["shared"], h, cfg, positions=positions,
+                h, nkv = _tblock(params["shared"], h, cfg, ctx=ctx, positions=positions,
                                  causal=True, kv=_kv_slice(cache, g), pos=pos,
                                  backend=backend)
                 kvs.append(nkv)
@@ -329,22 +367,23 @@ def _step(params, cfg, h, cache, *, positions, backend):
     return h, new_cache
 
 
-def prefill(params, cfg, tokens, cache, *, prefix_embeds=None,
-            backend: str = "xla"):
+def prefill(params, cfg, tokens, cache, *, ctx: ShardCtx = NO_SHARD,
+            prefix_embeds=None, backend: str = "xla"):
     """Consume the prompt (after the prefix embeddings, if any); returns
     (last-position logits (B, vocab) f32, cache)."""
-    h = _embed(params, tokens, prefix_embeds)
-    positions = cache["pos"] + torch.arange(h.shape[1], device=h.device)
-    h, cache = _step(params, cfg, h, cache, positions=positions, backend=backend)
-    return _head(params, cfg, h[:, -1:])[:, 0].float(), cache
+    h = _embed(params, tokens, prefix_embeds, ctx)
+    positions = local(cache["pos"]) + torch.arange(h.shape[1], device=h.device)
+    h, cache = _step(params, cfg, h, cache, ctx=ctx, positions=positions, backend=backend)
+    return _head(params, cfg, h[:, -1:], ctx)[:, 0].float(), cache
 
 
-def decode_step(params, cfg, token, cache, *, backend: str = "xla"):
+def decode_step(params, cfg, token, cache, *, ctx: ShardCtx = NO_SHARD,
+                backend: str = "xla"):
     """One new token (B,) or (B,1); returns (logits (B, vocab) f32, cache)."""
     token = torch.as_tensor(token, device=params["embed"].device)
     if token.dim() == 1:
         token = token[:, None]
-    h = _embed(params, token)
-    positions = cache["pos"] + torch.arange(1, device=h.device)
-    h, cache = _step(params, cfg, h, cache, positions=positions, backend=backend)
-    return _head(params, cfg, h)[:, 0].float(), cache
+    h = _embed(params, token, ctx=ctx)
+    positions = local(cache["pos"]) + torch.arange(1, device=h.device)
+    h, cache = _step(params, cfg, h, cache, ctx=ctx, positions=positions, backend=backend)
+    return _head(params, cfg, h, ctx)[:, 0].float(), cache

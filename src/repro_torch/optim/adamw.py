@@ -56,7 +56,8 @@ def lr_at(cfg: AdamWConfig, step):
 
 def init(params, state_dtype=torch.float32):
     """Zero moments shaped like ``params`` on their devices, step 0."""
-    zeros = lambda p: torch.zeros(p.shape, dtype=state_dtype, device=p.device)  # noqa: E731
+    # zeros_like: a DTensor param gets a moment in its placements
+    zeros = lambda p: torch.zeros_like(p, dtype=state_dtype)  # noqa: E731
     device = leaves(params)[0].device
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=device)}

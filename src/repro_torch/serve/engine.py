@@ -24,9 +24,11 @@ default, the reference's behaviour) and passes it to ``prefill`` and
 SSD scan kernel (``backend="pallas"``; a cached attention call takes the
 dense path whatever the backend).  It drops the reference's ``max_len``
 and ``batch_size``, which nothing reads (the cache is sized from the
-prompt and ``max_new``), and ``ctx`` (sharding is not ported, ROADMAP.md
-section 1, item 13).  ``ContinuousBatcher`` is the reference's,
-``technique="auto"`` and ``auto_seed`` included.
+prompt and ``max_new``).  ``ctx`` is the reference's sharding context:
+under a mesh the params are ``DTensor``s, the engine places its cache by
+``cache_pspecs`` and gathers each step's logits to pick the next tokens.
+``ContinuousBatcher`` is the reference's, ``technique="auto"`` and
+``auto_seed`` included.
 """
 from __future__ import annotations
 
@@ -38,6 +40,8 @@ import torch
 
 from repro_torch import dls
 from repro_torch.models import api
+from repro_torch.shard import NO_SHARD, ShardCtx, cache_pspecs, distribute
+from repro_torch.shard.spec import on_mesh
 
 
 @dataclasses.dataclass
@@ -55,10 +59,16 @@ class Request:
 class Engine:
     """Single-model batched engine (greedy decoding), on the params' device."""
 
-    def __init__(self, cfg, params, *, backend="xla"):
+    def __init__(self, cfg, params, *, backend="xla", ctx: ShardCtx = NO_SHARD):
         self.cfg = cfg
         self.params = params
         self.backend = backend
+        self.ctx = ctx
+
+    def _next(self, logits):
+        if on_mesh(self.ctx):
+            logits = logits.full_tensor()
+        return logits.argmax(-1).int()
 
     def generate(self, prompts: np.ndarray, max_new: int) -> np.ndarray:
         """prompts (B, Tp) -> tokens (B, max_new), greedy."""
@@ -67,19 +77,23 @@ class Engine:
         cache = api.init_cache(self.cfg, B, Tp + max_new,
                                src_len=Tp if self.cfg.is_encdec else None,
                                device=device)
+        if on_mesh(self.ctx):
+            mesh = self.ctx.mesh
+            cache = distribute(cache, cache_pspecs(cache, mesh,
+                                                   kv_heads=self.cfg.n_kv_heads or None), mesh)
         batch = {"tokens": prompts}
         if self.cfg.is_encdec:
             batch["src_embeds"] = api.frontend_stub_embeds(self.cfg, B, Tp,
                                                            device=device)
         logits, cache = api.prefill(self.params, self.cfg, batch, cache,
-                                    backend=self.backend)
+                                    ctx=self.ctx, backend=self.backend)
         out = []
-        tok = logits.argmax(-1).int()
+        tok = self._next(logits)
         for _ in range(max_new):
             out.append(tok)
             logits, cache = api.decode_step(self.params, self.cfg, tok, cache,
-                                            backend=self.backend)
-            tok = logits.argmax(-1).int()
+                                            ctx=self.ctx, backend=self.backend)
+            tok = self._next(logits)
         return torch.stack(out, dim=1).cpu().numpy()
 
 

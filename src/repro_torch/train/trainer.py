@@ -7,6 +7,12 @@ runs H logical hosts as threads against one shared RMA window -- the
 paper's execution model in-process -- so fault-tolerance/elasticity tests
 can kill and revive hosts and watch the unclaimed work get picked up by
 survivors (the one-sided protocol's natural elasticity).
+
+``Trainer(ctx=)`` takes the reference's sharding context: under a mesh the
+step runs sharded (``make_train_step(ctx=...)``), with the params placed
+by ``params_pspecs`` and the optimizer state in their placements.  A
+checkpoint of ``DTensor``s is not written: a ``ckpt_dir`` under a mesh
+raises.
 """
 from __future__ import annotations
 
@@ -23,6 +29,8 @@ from repro_torch.data.pipeline import DLSSampler, EpochState, HostDataIterator
 from repro_torch.kernels import _build
 from repro_torch.models import api
 from repro_torch.optim import adamw
+from repro_torch.shard import NO_SHARD, ShardCtx, distribute, params_pspecs
+from repro_torch.shard.spec import on_mesh
 
 from .step import make_train_step
 
@@ -53,9 +61,13 @@ def synchronize(device: torch.device) -> None:
 class Trainer:
     def __init__(self, cfg, tcfg: TrainConfig, opt_cfg: Optional[adamw.AdamWConfig] = None,
                  *, window=None, board: Optional[WeightBoard] = None,
-                 log: Callable[[str], None] = print, device=None):
+                 log: Callable[[str], None] = print, device=None,
+                 ctx: ShardCtx = NO_SHARD):
+        if on_mesh(ctx) and tcfg.ckpt_dir:
+            raise ValueError("Trainer: checkpoints of sharded params are not supported")
         self.cfg = cfg
         self.tcfg = tcfg
+        self.ctx = ctx
         self.device = _build.target_device(device, "Trainer")
         self.opt_cfg = opt_cfg or adamw.AdamWConfig(total_steps=tcfg.steps)
         self.log = log
@@ -67,7 +79,7 @@ class Trainer:
             self.sampler, seq_len=tcfg.seq_len, vocab=cfg.vocab,
             per_host_batch=tcfg.per_host_batch, seed=tcfg.seed)
         self.step_fn = make_train_step(
-            cfg, self.opt_cfg, microbatches=tcfg.microbatches, remat=tcfg.remat)
+            cfg, self.opt_cfg, ctx=ctx, microbatches=tcfg.microbatches, remat=tcfg.remat)
         self.ckpt = (CheckpointManager(tcfg.ckpt_dir, host_id=tcfg.host_id)
                      if tcfg.ckpt_dir else None)
         self.state_step = 0
@@ -78,6 +90,8 @@ class Trainer:
         """Params from ``tcfg.seed`` (the port's draws) and a fresh AdamW
         state, or the latest checkpoint's if there is one."""
         params = api.init_params(self.tcfg.seed, self.cfg, device=self.device)
+        if on_mesh(self.ctx):
+            params = distribute(params, params_pspecs(params), self.ctx.mesh)
         opt_state = adamw.init(params)
         if self.ckpt is not None:
             restored, extra = self.ckpt.restore({"params": params, "opt": opt_state})
