@@ -152,10 +152,21 @@ protocol and applications through the port's public entry points:
      --arch tinyllama-1.1b --no-reduced`` as a subprocess; the device
      hierarchy drained by ``dls.loop(90, "fac2", P=2,
      runtime="hierarchical")``.  The group is destroyed before phase 11.
+ 15. (run after 11) the examples (``examples/*_torch.py``) at their own
+     full width: ``dls_mandelbrot_torch --width 4096 --ct 2000 --workers
+     8`` in this process (512 launches of the static kernel from 8
+     threads, the image equal to phase 11's serial band render), then
+     ``train_e2e_torch --preset 100m`` (113M parameters, batch 8 x 512)
+     for 25 steps and a re-run to 30 that resumes at step 25 (ms a step,
+     tokens/s, peak memory, checkpoint times), and quickstart, serve_dls,
+     dls_hierarchical, serve_open_loop and dls_processes as subprocesses,
+     each held to its asserts and last line, with no child left after
+     dls_processes.
 
 The launch counts are zeroed just before each path (2-5, 6, 7, 8, 10's run
 of the selected technique, 11, whose worker processes count their own
-launches into shared memory, and each model of 12) and read just after.
+launches into shared memory, each model of 12, and 15's Mandelbrot
+example) and read just after.
 Every kernel is then held against its plain PyTorch version on the same
 inputs, every schedule against the host plan, the two model backends
 against each other, and each kernel is timed with CUDA events
@@ -1614,7 +1625,7 @@ def serial_bands(width: int, ct: int, n: int):
     return image, digests, float(frac[worst]), err
 
 
-def processes_path(image, plain_image, smi: str) -> dict:
+def processes_path(image, plain_image, smi: str) -> tuple:
     """Phase 11: ``dls.loop(512, t, P=P, window="shm")`` drained by
     ``executor="processes"`` with P = min(8, cores) worker processes, each
     bringing up its own CUDA context, rendering the main path's image band
@@ -1627,7 +1638,8 @@ def processes_path(image, plain_image, smi: str) -> dict:
     its plain version, and whose assembled image is held to the full-image
     kernel and to its plain version.  Then the window's RMW latency and
     contention, and one run's trace calibrated with the measured
-    ``o_rma``.  Returns row 2's launches on this path.
+    ``o_rma``.  Returns row 2's launches on this path, and the parent's
+    serial render of the bands (the image phase 15 is held to).
     """
     import functools
     import math
@@ -1748,7 +1760,210 @@ def processes_path(image, plain_image, smi: str) -> dict:
           f"percent error {err!r}")
     print(f"pt phase: {time.perf_counter() - t_phase:.1f} s wall")
     return {"processes_launches": sum(launched), "processes_runs": len(runs),
-            "processes_parent_launches": parent}
+            "processes_parent_launches": parent}, assembled
+
+
+# phase 15: the examples (examples/*_torch.py), each at its own full width
+EXAMPLE_TIMEOUT_S = 300
+E2E_TOKENS_PER_STEP = 8 * 512  # train_e2e's 100m preset: batch 8 x seq 512
+# the first run's steps, then the re-run's total: the resume comes from the
+# checkpoint at step 25 (checkpoints every 25; 50 / 75 cost the script ~10 s)
+E2E_STEPS = (25, 30)
+
+
+def load_example(root: Path, name: str):
+    """``examples/<name>.py`` as a module (its ``main`` not yet run)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, root / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_main(mod, argv):
+    """``mod.main(argv)`` in this process: (its result, its stdout, wall s).
+    The stdout is printed after the run, each line marked."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = mod.main(argv)
+    wall = time.perf_counter() - t0
+    for line in buf.getvalue().splitlines():
+        print(f"  | {line}")
+    return result, buf.getvalue(), wall
+
+
+def example_process(root: Path, name: str, argv=()):
+    """``python examples/<name>.py argv`` as a subprocess: (stdout, wall s);
+    a non-zero exit fails the phase."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, f"examples/{name}.py", *argv], cwd=root,
+                       env=env, capture_output=True, text=True, timeout=EXAMPLE_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    for line in r.stdout.splitlines():
+        print(f"  | {line}")
+    check(r.returncode == 0, f"examples: {name} exited {r.returncode}:\n{r.stderr[-3000:]}")
+    return r.stdout, wall
+
+
+def examples_path(root: Path, band_image, plain_image, smi: str) -> dict:
+    """Phase 15: the seven examples on the card, each at its own full width.
+
+    ``dls_mandelbrot_torch`` at 4096x4096, CT 2000, over 8 threads in this
+    process: 512 static-kernel launches, its image equal to phase 11's
+    serial band render (same bands, coordinates and kernel) and within
+    0.5 % of the plain image.  ``train_e2e_torch --preset 100m``: 25 steps,
+    then a re-run to 30 that must resume at step 25 (per step ms,
+    tokens/s, peak memory, each checkpoint's snapshot and write times).
+    The other five as subprocesses, each held to its asserts and last
+    line; after ``dls_processes_torch`` no child may be left.  Returns row
+    2's launches on this path.
+    """
+    import math
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.core.weights import WeightBoard
+    from repro_torch.kernels import _build
+
+    t_phase = time.perf_counter()
+    walls = {}
+
+    # -- dls_mandelbrot: 512 bands from 8 threads, each launching the kernel
+    mod = load_example(root, "dls_mandelbrot_torch")
+    calls, kernel = [], mod.mandelbrot
+
+    def timed_kernel(*a, **kw):  # when each band's launch starts and returns
+        t0 = time.perf_counter()
+        out = kernel(*a, **kw)
+        calls.append((t0, time.perf_counter(), threading.get_ident()))
+        return out
+
+    mod.mandelbrot = timed_kernel
+    out_dir = Path(tempfile.mkdtemp(prefix="examples_", dir=root / "build"))
+    try:
+        _build.reset_launches()
+        img, out, walls["dls_mandelbrot_torch"] = example_main(mod, [
+            "--width", str(IMG), "--ct", str(CT), "--workers", "8",
+            "--out", str(out_dir / "mandelbrot.pgm")])
+        launched = _build.LAUNCHES["mandelbrot_static"]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    n_bands = IMG // BAND_ROWS
+    check(launched == n_bands and len(calls) == n_bands,
+          f"examples: dls_mandelbrot launched the static kernel {launched} times "
+          f"({len(calls)} calls), {n_bands} bands")
+    check(all(v == 0 for k, v in _build.LAUNCHES.items() if k != "mandelbrot_static"),
+          f"examples: dls_mandelbrot launched only the static kernel {_build.LAUNCHES}")
+    got = torch.from_numpy(img)
+    check(torch.equal(got, band_image.cpu()),
+          "examples: dls_mandelbrot's image == phase 11's serial band render exactly")
+    frac = (got != plain_image.cpu()).double().mean().item()
+    check(frac < 0.005, f"examples: dls_mandelbrot vs the plain image {frac!r} (< 0.5 %)")
+    span = max(c[1] for c in calls) - min(c[0] for c in calls)
+    threads = len({c[2] for c in calls})
+    print(f"examples dls_mandelbrot_torch: {IMG}x{IMG} CT {CT}, {launched} launches of "
+          f"mandelbrot_static from {threads} threads; == phase 11's band image exactly, "
+          f"{frac!r} of pixels differ from the plain image; render {span!r} s from the "
+          f"first launch to the last, {span / n_bands * 1e3!r} ms a band (launch, copy "
+          f"back, claims); median launch call {statistics.median(c[1] - c[0] for c in calls) * 1e3!r} "
+          f"ms; whole example {walls['dls_mandelbrot_torch']!r} s ({smi})")
+
+    # -- train_e2e: 100m, 25 steps, then resumed to 30 -----------------------
+    mod = load_example(root, "train_e2e_torch")
+    steps_s, snaps, writes = [], [], []
+    record, save, write = WeightBoard.record, CheckpointManager.save, CheckpointManager._write
+
+    def timed_record(self, pe, iters, seconds):  # the trainer's own step time
+        steps_s.append(seconds)
+        return record(self, pe, iters, seconds)
+
+    def timed_save(self, step, *a, **kw):  # the synchronous host snapshot
+        t0 = time.perf_counter()
+        save(self, step, *a, **kw)
+        snaps.append((step, time.perf_counter() - t0))
+
+    def timed_write(self, step, *a):  # the writer thread's file I/O
+        t0 = time.perf_counter()
+        write(self, step, *a)
+        writes.append((step, time.perf_counter() - t0))
+
+    ckpt = Path(tempfile.mkdtemp(prefix="e2e_ckpt_", dir=root / "build"))
+    runs = {}
+    WeightBoard.record, CheckpointManager.save = timed_record, timed_save
+    CheckpointManager._write = timed_write
+    try:
+        for steps in E2E_STEPS:
+            steps_s.clear()
+            torch.cuda.reset_peak_memory_stats()
+            trainer, out, wall = example_main(mod, [
+                "--preset", "100m", "--steps", str(steps), "--ckpt", str(ckpt)])
+            runs[steps] = dict(trainer=trainer, out=out, wall=wall, steps_s=list(steps_s),
+                               peak=torch.cuda.max_memory_allocated() / 2**30)
+    finally:
+        WeightBoard.record, CheckpointManager.save = record, save
+        CheckpointManager._write = write
+        shutil.rmtree(ckpt, ignore_errors=True)
+    (n1, n2), (first, second) = E2E_STEPS, (runs[n] for n in E2E_STEPS)
+    check(len(first["trainer"].history) == n1 and "resumed" not in first["out"],
+          f"examples: train_e2e's first run trains {n1} steps from scratch")
+    check(f"[trainer] resumed at step {n1}," in second["out"]
+          and len(second["trainer"].history) == n2 - n1,
+          f"examples: train_e2e's re-run resumes at step {n1} and trains {n2 - n1} steps")
+    losses = first["trainer"].history + second["trainer"].history
+    head, tail = statistics.mean(losses[:10]), statistics.mean(losses[-10:])
+    check(all(math.isfinite(x) for x in losses) and tail < head,
+          f"examples: train_e2e losses finite and falling (mean of the first 10 "
+          f"{head!r}, of the last 10 {tail!r})")
+    walls["train_e2e_torch"] = first["wall"] + second["wall"]
+    for steps, r in runs.items():
+        ms = statistics.median(r["steps_s"][1:]) * 1e3
+        print(f"examples train_e2e_torch 100m to step {steps}: {len(r['steps_s'])} steps, "
+              f"{ms!r} ms a step (median, the trainer's own clock, first step "
+              f"{r['steps_s'][0] * 1e3!r} ms), {E2E_TOKENS_PER_STEP / ms * 1e3!r} tokens/s, "
+              f"peak {r['peak']!r} GiB; run {r['wall']!r} s ({smi})")
+        r["ms"] = ms
+    print(f"examples train_e2e_torch checkpoints: snapshot (host copy, blocks the "
+          f"step) {snaps!r} s; write (writer thread) {writes!r} s")
+
+    # -- the other five, as subprocesses -------------------------------------
+    out, walls["quickstart_torch"] = example_process(root, "quickstart_torch")
+    check(out.splitlines()[-1] == "quickstart OK", "examples: quickstart OK")
+    out, walls["serve_dls_torch"] = example_process(root, "serve_dls_torch")
+    lines = out.splitlines()
+    check(lines[-1] == "[serve_dls] real generation OK: (4, 12)",
+          f"examples: serve_dls's generation {lines[-1]!r}")
+    batchers = [ln for ln in lines if "makespan=" in ln]
+    check(len(batchers) == 4 and re.match(r"auto->\w+ ", batchers[-1]),
+          f"examples: serve_dls's four batchers {batchers!r}")
+    out, walls["dls_hierarchical_torch"] = example_process(root, "dls_hierarchical_torch")
+    check(out.splitlines()[-1].startswith("  global-RMW reduction: "),
+          "examples: dls_hierarchical ran to its end")
+    out, walls["serve_open_loop_torch"] = example_process(root, "serve_open_loop_torch")
+    check(out.splitlines()[-1].startswith("[open_loop] auto p99 TTFT "),
+          "examples: serve_open_loop ran to its end")
+    out, walls["dls_processes_torch"] = example_process(root, "dls_processes_torch")
+    check(out.splitlines()[-1].endswith("-- all 2000 iterations still exactly once"),
+          "examples: dls_processes's salvage line")
+    killed = stop_children()
+    check(not killed, f"examples: dls_processes left children behind {killed!r}")
+    for name, wall in walls.items():
+        print(f"examples wall {name}: {wall!r} s ({smi})")
+    print(f"examples phase: {time.perf_counter() - t_phase:.1f} s wall")
+    return {"launches_examples": launched, "examples_ms_per_band": span / n_bands * 1e3,
+            "examples_e2e_ms_per_step": first["ms"]}
 
 
 # phase 12: the model plane's decode paths at full width.  name -> (layers
@@ -3007,11 +3222,14 @@ def main() -> int:
     replay_path(root, P, costs, sessions, image)
 
     # -- 11. processes: bands of the image over real OS processes ----------
-    next(r for r in rows if r["name"] == "mandelbrot_static").update(
-        processes_path(image, plain_image, card))
+    static_row = next(r for r in rows if r["name"] == "mandelbrot_static")
+    pt_launches, band_image = processes_path(image, plain_image, card)
+    static_row.update(pt_launches)
     killed = stop_children()
     print(f"processes: every child stopped; {len(killed)} killed after the grace "
           f"period {killed!r}")
+    # -- 15. the examples, at their own full width ---------------------------
+    static_row.update(examples_path(root, band_image, plain_image, card))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,9 @@ The build runs at first use, from the sources in the checkout, into
 ``build/repro_torch/`` at the repository root.  A library's file name
 carries a hash of its source, every header in ``csrc``, the flags and the
 ``nvcc`` (path and version), so a stale build is never loaded.
-``build()`` starts one ``nvcc`` per missing library, all at once.
+``build()`` starts one ``nvcc`` per missing library, all at once.  Builds
+and first loads run under one lock, so threads whose first kernel calls
+race (a thread pool rendering tiles) run each ``nvcc`` once.
 
 Numeric trap 1 (FMA contraction) is handled by the flags: ``-fmad=false``
 keeps every f32 product and sum separately rounded, as the reference's
@@ -25,6 +27,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -60,6 +63,11 @@ LAUNCHES: Dict[str, int] = {
 
 #: library name -> nvcc's output (``-Xptxas -v``: registers, shared memory)
 BUILD_LOGS: Dict[str, str] = {}
+
+# held by ``build`` and by the first call of ``library``/``function``: an
+# ``lru_cache`` does not serialise first calls, and two threads' nvcc into
+# one library would each ``os.replace`` the other's output
+_LOCK = threading.RLock()
 
 
 def reset_launches() -> None:
@@ -109,46 +117,49 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Path]:
     Raises ``RuntimeError`` with nvcc's output if a source does not compile.
     """
     names = list(names)
-    paths = {n: _library_path(n) for n in names}
-    todo = [n for n in names if not paths[n].exists()]
-    if not todo:
+    with _LOCK:
+        paths = {n: _library_path(n) for n in names}
+        todo = [n for n in names if not paths[n].exists()]
+        if not todo:
+            return paths
+        nvcc = nvcc_path()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        for n in todo:
+            tmp = paths[n].with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[n])]
+            procs[n] = (tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        failed = []
+        for n, (tmp, proc) in procs.items():
+            log, _ = proc.communicate()
+            BUILD_LOGS[n] = log
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed for {SOURCES[n]} "
+                              f"(exit {proc.returncode}):\n{log}")
+            else:
+                os.replace(tmp, paths[n])
+        if failed:
+            raise RuntimeError("\n".join(failed))
         return paths
-    nvcc = nvcc_path()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for n in todo:
-        tmp = paths[n].with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[n])]
-        procs[n] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    failed = []
-    for n, (tmp, proc) in procs.items():
-        log, _ = proc.communicate()
-        BUILD_LOGS[n] = log
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed for {SOURCES[n]} "
-                          f"(exit {proc.returncode}):\n{log}")
-        else:
-            os.replace(tmp, paths[n])
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return paths
 
 
 @functools.lru_cache(maxsize=None)
 def library(name: str) -> ctypes.CDLL:
     """The loaded library ``name`` (built first if missing)."""
-    return ctypes.CDLL(str(build([name])[name]))
+    with _LOCK:
+        return ctypes.CDLL(str(build([name])[name]))
 
 
 @functools.lru_cache(maxsize=None)
 def function(name: str, symbol: str, *argtypes):
     """A C entry point of library ``name`` with its argument types declared;
     every entry point returns ``cudaGetLastError()`` as an int."""
-    fn = getattr(library(name), symbol)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
-    return fn
+    with _LOCK:
+        fn = getattr(library(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        return fn
 
 
 def check(err: int, what: str) -> None:

@@ -289,3 +289,42 @@ def grads_close(cfg, got, want, rel):
             assert float(np.abs(g).max()) < 1e-6 * top, i
             continue
         assert float(np.abs(g - w).max()) <= rel * scale, (i, float(np.abs(g - w).max()), scale)
+
+
+# ---------------------------------------------------------------------------
+# the examples: the port's (examples/*_torch.py) beside the reference's
+# ---------------------------------------------------------------------------
+
+def run_examples(*calls, timeout=120):
+    """Run each ``(script, args)`` of ``examples/`` in its own subprocess,
+    all at once, from the repository root; their stdouts, in order.  A
+    failed run fails the calling test with its output."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(root / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    env["JAX_PLATFORMS"] = "cpu"
+    # two PyTorch threads each: the examples run beside each other and
+    # beside other test workers, where full OpenMP pools thrash
+    env["OMP_NUM_THREADS"] = "2"
+    procs = [subprocess.Popen([sys.executable, f"examples/{script}", *map(str, args)],
+                              cwd=root, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for script, args in calls]
+    outs = []
+    try:
+        for (script, args), p in zip(calls, procs):
+            out, err = p.communicate(timeout=timeout)
+            assert p.returncode == 0, f"{script} {args} exited {p.returncode}:\n{out}\n{err[-3000:]}"
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs

@@ -1,13 +1,16 @@
-"""Import hygiene of the port: repro_torch and chip_smoke.py never import
-``jax`` or the reference package ``repro`` (not even a numpy-only module),
-nor ``ml_dtypes``, which the card's machine does not have."""
+"""Import hygiene of the port: repro_torch, its examples
+(``examples/*_torch.py``) and chip_smoke.py never import ``jax`` or the
+reference package ``repro`` (not even a numpy-only module), nor
+``ml_dtypes``, which the card's machine does not have."""
 import ast
 from pathlib import Path
 
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+EXAMPLES = sorted((ROOT / "examples").glob("*_torch.py"))
+FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + EXAMPLES
+         + [ROOT / "chip_smoke.py"])
 FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
@@ -25,6 +28,14 @@ def _imported_modules(tree):
 
 def test_port_has_modules():
     assert len(FILES) > 20
+
+
+def test_every_reference_example_has_its_port():
+    ref = sorted(p for p in (ROOT / "examples").glob("*.py") if not p.stem.endswith("_torch"))
+    assert [p.stem for p in ref] == sorted([
+        "quickstart", "dls_mandelbrot", "dls_hierarchical", "dls_processes",
+        "serve_dls", "serve_open_loop", "train_e2e"])
+    assert [p.stem for p in EXAMPLES] == [f"{p.stem}_torch" for p in ref]
 
 
 @pytest.mark.parametrize("path", FILES, ids=[str(p.relative_to(ROOT)) for p in FILES])

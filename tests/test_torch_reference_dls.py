@@ -1,0 +1,20 @@
+"""The reference's own test files of the facade, the runtimes and the
+adaptive techniques, unchanged and in place, against the port
+(``_torch_reference.py``, ``_torch_alias.py``): one subprocess per file,
+with its own timeout."""
+import pytest
+
+from _torch_reference import assert_reference_file
+
+FILES = (
+    "test_invariants.py",
+    "test_dls_session.py",
+    "test_scheduler.py",
+    "test_hierarchical.py",
+    "test_adaptive.py",
+)
+
+
+@pytest.mark.parametrize("path", FILES)
+def test_reference_file_passes_on_the_port(path, tmp_path):
+    assert_reference_file(path, tmp_path)
