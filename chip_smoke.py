@@ -89,8 +89,9 @@ protocol and applications through the port's public entry points:
      once with a digest equal to this process's serial render, each of
      whose bands is held to its own plain version and whose assembled
      image is held to phase 3's image and its plain version; then the
-     window's RMW latency and contention at P = 1, 2, 4, 8, and one run's
-     trace calibrated with the measured ``o_rma``;
+     window's RMW latency and contention at P = 1, 2, 4, 8, one run's
+     trace calibrated with the measured ``o_rma``, and a chunk record's
+     send down a worker's pipe against ``multiprocessing.Queue.put``;
  12. (run after 8) the model plane's decode paths at full width, one
      model at a time (random weights from seed 0; f32, then cast to the
      config's bf16):
@@ -1564,17 +1565,66 @@ def render_bands(spec, width: int, ct: int, a: int, b: int) -> None:
 def render_bands_die_at(spec, width: int, ct: int, victim: int, die_after: int,
                         a: int, b: int) -> None:
     """``render_bands``, but PE ``victim`` dies (``os._exit(77)``) before its
-    ``die_after + 1``-th sub-block, as ``workloads.die_at`` does."""
+    ``die_after + 1``-th sub-block, as ``workloads.die_at`` does, and the
+    other PEs hold their first sub-block until the victim has claimed (its
+    first chunk is then a batch-0 one)."""
     import os
 
     global _BAND_CALLS
-    from repro_torch.pt import worker
+    from repro_torch.pt import worker, workloads
 
     if worker.CURRENT_PE == victim:
         if _BAND_CALLS >= die_after:
             os._exit(77)
         _BAND_CALLS += 1
+    else:
+        workloads.wait_for_victim(victim)
     render_bands(spec, width, ct, a, b)
+
+
+def _take_records(src, n: int, ready) -> None:
+    """Child of ``record_send_us``: say it has started, then read ``n``
+    records from a pipe's read end or a queue."""
+    get = src.recv if hasattr(src, "recv") else src.get
+    ready.set()
+    for _ in range(n):
+        get()
+
+
+def record_send_us(ctx, n: int = 4096) -> tuple:
+    """Host µs per chunk record, each read by a child process: sent down a
+    pipe as a ``pt`` worker sends it (one write, in the OS pipe when
+    ``send`` returns); put on a ``multiprocessing.Queue`` as the
+    reference's worker puts it (handed to the feeder thread); and the
+    queue's time with its feeder flushed at the end (``close`` +
+    ``join_thread``), what the put needs before the record is safe."""
+    rec = {"kind": "chunk", "pe": 7, "seq": 100, "step": 300, "start": 123456,
+           "size": 32, "t0": 1.2345678, "t1": 1.3456789, "lat": 1.2e-05}
+    r, w = ctx.Pipe(duplex=False)
+    ready = ctx.Event()
+    child = ctx.Process(target=_take_records, args=(r, n, ready))
+    child.start()
+    r.close()
+    check(ready.wait(60), "pt record send: the reading child started")
+    t0 = time.perf_counter()
+    for _ in range(n):
+        w.send(rec)
+    pipe = (time.perf_counter() - t0) / n * 1e6
+    child.join(timeout=60)
+    w.close()
+    q, ready = ctx.Queue(), ctx.Event()
+    child = ctx.Process(target=_take_records, args=(q, n, ready))
+    child.start()
+    check(ready.wait(60), "pt record send: the reading child started")
+    t0 = time.perf_counter()
+    for _ in range(n):
+        q.put(rec)
+    put = (time.perf_counter() - t0) / n * 1e6
+    q.close()
+    q.join_thread()
+    flushed = (time.perf_counter() - t0) / n * 1e6
+    child.join(timeout=60)
+    return pipe, put, flushed
 
 
 def bands_plain(width: int, ct: int, n: int, device="cuda"):
@@ -1649,6 +1699,7 @@ def processes_path(image, plain_image, smi: str) -> tuple:
     import torch
 
     from repro_torch import dls
+    from repro_torch.core import LoopSpec, plan
     from repro_torch.kernels import _build, mandelbrot
     from repro_torch.pt import measure_contention, measure_rmw_latency
     from repro_torch.pt.executor import pick_start_method
@@ -1727,18 +1778,27 @@ def processes_path(image, plain_image, smi: str) -> tuple:
         check(rep.n_rmw_local > rep.n_rmw_global > 0,
               f"pt hierarchical: local RMWs {rep.n_rmw_local} > global {rep.n_rmw_global}")
         # PE 1 dies before its 2nd sub-block of 4 bands: its first fac2 chunk is
-        # 32 bands, so 4 are salvaged and 28 orphaned to survivors
+        # a batch-0 one, 32 bands at P = 8, so 4 are salvaged and 28 orphaned
+        # to survivors
         rep = run("fac2 kill", "fac2", progress=4, deaths=1,
                   work=functools.partial(render_bands_die_at, out.spec, width, CT, 1, 1))
         ps = rep.process_stats
         victim = next(e for e in ps["per_pe"] if e.get("died"))
         check(victim["pe"] == 1 and victim["exitcode"] == 77, "pt kill: PE 1 died with 77")
+        check(rep.total_iters == n, f"pt kill: {rep.total_iters} bands in the report of {n}")
         check(victim["salvaged_iters"] == 4 and victim["orphaned_iters"] > 0,
               f"pt kill: salvaged {victim['salvaged_iters']}, orphaned {victim['orphaned_iters']}")
+        batch0 = int(plan(LoopSpec("fac2", N=n, P=P))[0][0])
+        own = rep.per_pe_claims[1]
+        check(len(own) == 1 and own[0].size == 4
+              and victim["salvaged_iters"] + victim["orphaned_iters"] == batch0,
+              f"pt kill: PE 1's claims {own!r}, one salvaged prefix of its batch-0 "
+              f"chunk of {batch0}")
         check(sum(o["size"] for o in ps["orphans"]) == victim["orphaned_iters"]
               and all(o["by_pe"] != 1 for o in ps["orphans"]), "pt kill: orphans re-executed")
         print(f"pt kill: PE 1 salvaged {victim['salvaged_iters']} bands, orphaned "
-              f"{victim['orphaned_iters']}, re-executed by PEs "
+              f"{victim['orphaned_iters']} of its batch-0 chunk of {batch0}; "
+              f"{rep.total_iters} bands in the report; re-executed by PEs "
               f"{sorted({o['by_pe'] for o in ps['orphans']})}")
         parent = _build.LAUNCHES["mandelbrot_static"]
         check(parent == sum(runs[f"{t} two_sided"].per_pe_iters[0] for t in PT_TECHNIQUES),
@@ -1750,6 +1810,13 @@ def processes_path(image, plain_image, smi: str) -> tuple:
 
     lat = measure_contention((1, 2, 4, 8), base=measure_rmw_latency())
     print(f"pt {lat.summary()} (host times of the card's machine, {smi})")
+    from repro_torch.pt.executor import _get_ctx
+
+    pipe_us, put_us, flushed_us = record_send_us(_get_ctx(method))
+    print(f"pt record send: {pipe_us!r} us a chunk record down a worker's pipe; "
+          f"multiprocessing.Queue.put {put_us!r} us, {flushed_us!r} us with its feeder "
+          f"flushed (4096 records, one child reading; host times of the card's "
+          f"machine, {smi})")
     native = runs["fac2 one_sided"]
     cal = calibrate(Trace.from_report(native, meta={"seed": 0}),
                     **lat.calibration_overrides(contended_p=P))

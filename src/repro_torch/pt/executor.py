@@ -25,12 +25,14 @@ picklable under spawn/forkserver -- use module-level functions/partials
 (see ``repro_torch.pt.workloads``).
 
 Fault story: each worker publishes its in-flight range to a crash slot
-before executing and bumps a high-water mark per sub-block.  The parent's
-monitor harvests dead workers (no exit record + process gone): the
-executed prefix becomes a synthesized chunk record, the unexecuted
-remainder goes on the orphan queue, and drained survivors re-execute it
--- conservation holds to exactly N.  All-workers-dead (no survivor to
-re-claim) raises, mirroring the DES's PEFailure scenario.  A SIGKILL that
+before executing and bumps a high-water mark per sub-block, and sends
+each finished chunk's record down a pipe of its own, synchronously, so
+the record outlives the sender.  The parent's monitor harvests dead
+workers (no exit record + process gone) once it has read every record
+they sent: the executed prefix becomes a synthesized chunk record, the
+unexecuted remainder goes on the orphan queue, and drained survivors
+re-execute it -- conservation holds to exactly N.  All-workers-dead (no
+survivor to re-claim) raises, mirroring the DES's PEFailure scenario.  A SIGKILL that
 lands *inside* the claim protocol itself (between the window fetch-adds
 and the slot publish, a ~microsecond window) can strand iterations
 unaccountably -- the honest limit of crash recovery without transactional
@@ -40,6 +42,7 @@ from __future__ import annotations
 
 import atexit
 import multiprocessing as mp
+import multiprocessing.connection as mpc
 import os
 import queue as _queue
 import sys
@@ -174,7 +177,12 @@ class _Monitor:
     def __init__(self, session, ctx, worker_pes: List[int], origin_val,
                  feed_policy: bool):
         self.session = session
-        self.rec_q = ctx.Queue()
+        # one record pipe per PE, one writer each: the read ends stay here,
+        # the write ends go to the children (``close_writers`` once started)
+        self.conns: Dict[int, mpc.Connection] = {}
+        self.writers: Dict[int, mpc.Connection] = {}
+        for pe in worker_pes:
+            self.conns[pe], self.writers[pe] = ctx.Pipe(duplex=False)
         self.orphan_q = ctx.Queue()
         self.slots = ctx.Array("q", session.spec.P * W.SLOT_FIELDS,
                                lock=False)
@@ -192,16 +200,52 @@ class _Monitor:
         self.procs: Dict[int, mp.Process] = {}
 
     # -- record intake -----------------------------------------------------
+    def close_writers(self) -> None:
+        # the children hold their write ends now.  Nothing waits for EOF:
+        # under fork every later child inherits the earlier PEs' write ends
+        for w in self.writers.values():
+            w.close()
+        self.writers.clear()
+
+    def close(self) -> None:
+        self.close_writers()
+        for conn in self.conns.values():
+            conn.close()
+        self.conns.clear()
+        # a few small items at most: its feeder thread ends at once, and the
+        # parent is back to one thread (fork stays safe for the next run)
+        self.orphan_q.close()
+        self.orphan_q.join_thread()
+
     def drain_records(self, timeout: float = 0.02) -> int:
+        """Handle every record waiting on any PE's pipe, waiting up to
+        ``timeout`` for the first.  Every loop in which the parent waits
+        calls this: a worker blocks once its pipe (~64 KiB) is full."""
         n = 0
         while True:
-            try:
-                msg = self.rec_q.get(timeout=timeout if n == 0 else 0)
-            except _queue.Empty:
+            if not self.conns:  # every pipe at EOF: wait as a read would
+                time.sleep(timeout)
                 return n
-            n += 1
+            ready = mpc.wait(list(self.conns.values()), timeout)
+            if not ready:
+                return n
             timeout = 0.0
-            self._handle(msg)
+            for pe in [p for p, c in self.conns.items() if c in ready]:
+                n += self.read_records(pe)
+
+    def read_records(self, pe: int) -> int:
+        """Handle the records on ``pe``'s pipe until none is waiting."""
+        conn, n = self.conns.get(pe), 0
+        if conn is None:
+            return 0
+        try:
+            while conn.poll():
+                self._handle(conn.recv())
+                n += 1
+        except (EOFError, OSError):  # every write end is closed
+            conn.close()
+            del self.conns[pe]
+        return n
 
     def _handle(self, msg: dict) -> None:
         kind, pe = msg["kind"], msg.get("pe")
@@ -228,12 +272,16 @@ class _Monitor:
 
     # -- death harvesting --------------------------------------------------
     def check_deaths(self) -> None:
-        for pe in [p for p in self.live]:
+        for pe in list(self.live):
             proc = self.procs[pe]
-            if proc.is_alive() or pe in self.exited:
+            if proc.is_alive():
                 continue
             proc.join(timeout=0.1)
-            self._harvest(pe, proc)
+            # everything it sent is in its pipe: handle it before judging
+            # the crash slot, whose seq is paired with the last record
+            self.read_records(pe)
+            if pe not in self.exited:
+                self._harvest(pe, proc)
 
     def _harvest(self, pe: int, proc: mp.Process) -> None:
         self.live.discard(pe)
@@ -370,7 +418,7 @@ def execute_processes(session, work_fn, *, start_method: Optional[str] = None,
     for pe in worker_pes:
         cfg = {"pe": pe, "spec": spec, "runtime": rdesc, "policy": pdesc,
                "work_fn": work_fn, "progress": progress,
-               "rec_q": mon.rec_q, "orphan_q": mon.orphan_q,
+               "rec": mon.writers[pe], "orphan_q": mon.orphan_q,
                "slots": mon.slots, "barrier": barrier, "origin": origin_val}
         if two_sided:
             cfg["req_q"] = req_q
@@ -381,6 +429,7 @@ def execute_processes(session, work_fn, *, start_method: Optional[str] = None,
     t_spawn = time.monotonic()
     for p in mon.procs.values():
         p.start()
+    mon.close_writers()
 
     # wait for every worker to attach; a pre-barrier death must not hang us
     while barrier.n_waiting < len(worker_pes):
@@ -422,6 +471,8 @@ def execute_processes(session, work_fn, *, start_method: Optional[str] = None,
     except BaseException:
         mon.kill_all()
         raise
+    finally:
+        mon.close()
     wall = time.monotonic() - origin_val.value
     if mon.errors:
         raise RuntimeError(
@@ -451,21 +502,7 @@ def _master_loop(session, mon, req_q, reply_qs, work_fn, progress,
     my_drained = False
     origin = mon.origin_val.value
     while True:
-        # serve everything pending (the master's first duty)
-        while True:
-            try:
-                _, pe = req_q.get_nowait()
-            except _queue.Empty:
-                break
-            c = session.claim(pe)  # parent policy supplies weight/af
-            if c is not None:
-                # claimed on behalf of the worker: move the log entry when
-                # the worker's own record arrives (log_claim re-logs) -- so
-                # drop the master-side log to avoid double counting
-                session._claim_log[pe].pop()
-            reply_qs[pe].put(None if c is None
-                             else (c.step, c.start, c.size))
-        mon.drain_records(timeout=0.0)
+        _serve(session, mon, req_q, reply_qs)  # the master's first duty
         mon.check_deaths()
         if time.monotonic() > deadline:
             raise RuntimeError("processes executor exceeded its timeout "
@@ -484,16 +521,7 @@ def _master_loop(session, mon, req_q, reply_qs, work_fn, progress,
                         b = min(a + progress, c.stop)  # non-dedicated master
                         work_fn(a, b)
                         a = b
-                        while True:
-                            try:
-                                _, pe = req_q.get_nowait()
-                            except _queue.Empty:
-                                break
-                            cw = session.claim(pe)
-                            if cw is not None:
-                                session._claim_log[pe].pop()
-                            reply_qs[pe].put(None if cw is None
-                                             else (cw.step, cw.start, cw.size))
+                        _serve(session, mon, req_q, reply_qs)
                 t1 = time.monotonic() - origin
                 session.record(master_pe, c.size, t1 - t0,
                                sched_seconds=lat, claim=c, t_start=t0,
@@ -521,6 +549,24 @@ def _master_loop(session, mon, req_q, reply_qs, work_fn, progress,
         if mon.workers_done():
             return
         time.sleep(0.001)
+
+
+def _serve(session, mon, req_q, reply_qs) -> None:
+    """Answer every pending claim request, then read the workers' records
+    (a worker whose pipe is full waits for the parent to read it)."""
+    while True:
+        try:
+            _, pe = req_q.get_nowait()
+        except _queue.Empty:
+            break
+        c = session.claim(pe)  # parent policy supplies weight/af
+        if c is not None:
+            # claimed on behalf of the worker: move the log entry when
+            # the worker's own record arrives (log_claim re-logs) -- so
+            # drop the master-side log to avoid double counting
+            session._claim_log[pe].pop()
+        reply_qs[pe].put(None if c is None else (c.step, c.start, c.size))
+    mon.drain_records(timeout=0.0)
 
 
 def _process_stats(mon, method, rdesc, pdesc, telemetry) -> dict:

@@ -15,8 +15,8 @@ only if its ``work_fn`` does).  A worker:
      plane, exactly like threads over one window;
   3. runs the unmodified claim loop: timed claim, publish the in-flight
      range to its crash slot, execute in ``progress``-sized sub-blocks
-     (bumping the slot's high-water mark), report the chunk record to the
-     parent, clear the slot;
+     (bumping the slot's high-water mark), send the chunk record to the
+     parent down the PE's own pipe, clear the slot;
   4. after its drain, blocks on the orphan queue: ranges abandoned by dead
      PEs are re-executed by survivors until the parent sends the sentinel.
 
@@ -26,6 +26,13 @@ the last chunk record the parent actually received, so the monitor can
 tell "died before reporting" from "reported then died", synthesize a
 record for the executed prefix, and orphan exactly the unexecuted
 remainder.  See DESIGN.md Sec. 11.
+
+Records go down a pipe of the PE's own (one writer, no lock), written
+synchronously: when ``send`` returns the record is in the OS pipe, so an
+``os._exit`` or a SIGKILL after it cannot lose it.  (The reference sends
+through a shared ``multiprocessing.Queue``, whose feeder thread dies
+with the process and can take the last record with it.)  A record is a
+few hundred bytes, under ``PIPE_BUF``, so each is one atomic write.
 """
 from __future__ import annotations
 
@@ -46,14 +53,15 @@ from repro_torch.dls.policies import (
 
 from .window import SharedMemWindow, attach_hier
 
-# The PE index this process is running as (None in the parent).  Workloads
-# may consult it -- the fault-tolerance tests use it to make one specific
-# PE die mid-chunk.
+# The PE index this process is running as, and the run's crash slots (None
+# in the parent).  Workloads may consult them -- the fault-tolerance tests
+# use them to make one specific PE die mid-chunk (``workloads.die_at``).
 CURRENT_PE: Optional[int] = None
+SLOTS = None
 
 # crash-slot field offsets (int64 x SLOT_FIELDS per PE, single writer)
-SLOT_FIELDS = 6
-SEQ, STATE, START, STOP, DONE, T0_US = range(SLOT_FIELDS)
+SLOT_FIELDS = 7
+SEQ, STATE, START, STOP, DONE, T0_US, PID = range(SLOT_FIELDS)
 IDLE, CHUNK, ORPHAN = 0, 1, 2
 
 
@@ -141,26 +149,23 @@ def _build_policy(cfg):
 
 def pe_main(cfg) -> None:
     """Process entry point for one PE (all runtimes)."""
-    global CURRENT_PE
+    global CURRENT_PE, SLOTS
     pe = cfg["pe"]
-    CURRENT_PE = pe
-    rec_q = cfg["rec_q"]
+    CURRENT_PE, SLOTS = pe, cfg["slots"]
+    SLOTS[pe * SLOT_FIELDS + PID] = os.getpid()
+    rec = cfg["rec"]
     try:
-        _pe_body(cfg, pe, rec_q)
+        _pe_body(cfg, pe, rec)
     except BaseException:
         try:
-            rec_q.put({"kind": "error", "pe": pe,
-                       "trace": traceback.format_exc()})
-            # os._exit kills the queue's feeder thread: flush it first, or
-            # the parent never sees the traceback
-            rec_q.close()
-            rec_q.join_thread()
+            rec.send({"kind": "error", "pe": pe,
+                      "trace": traceback.format_exc()})
         except Exception:
             pass
         os._exit(1)
 
 
-def _pe_body(cfg, pe: int, rec_q) -> None:
+def _pe_body(cfg, pe: int, rec) -> None:
     spec: cc.LoopSpec = cfg["spec"]
     rt, win = _build_runtime(cfg)
     policy = _build_policy(cfg)
@@ -203,12 +208,12 @@ def _pe_body(cfg, pe: int, rec_q) -> None:
         if policy is not None and not two_sided:
             policy.record(pe, c.size, t1 - t0, lat)
         n_chunks += 1
-        rec_q.put({"kind": "chunk", "pe": pe, "seq": seq, "step": c.step,
-                   "start": c.start, "size": c.size, "t0": t0, "t1": t1,
-                   "lat": lat})
+        rec.send({"kind": "chunk", "pe": pe, "seq": seq, "step": c.step,
+                  "start": c.start, "size": c.size, "t0": t0, "t1": t1,
+                  "lat": lat})
         _clear(slots, pe)
 
-    rec_q.put({"kind": "drained", "pe": pe})
+    rec.send({"kind": "drained", "pe": pe})
 
     # orphan phase: survivors re-execute ranges abandoned by dead PEs
     n_orphans = 0
@@ -225,9 +230,9 @@ def _pe_body(cfg, pe: int, rec_q) -> None:
         if policy is not None and not two_sided:
             policy.record(pe, stop - start, t1 - t0, 0.0)
         n_orphans += 1
-        rec_q.put({"kind": "orphan", "pe": pe, "seq": seq, "start": start,
-                   "size": stop - start, "t0": t0, "t1": t1,
-                   "from_pe": from_pe})
+        rec.send({"kind": "orphan", "pe": pe, "seq": seq, "start": start,
+                  "size": stop - start, "t0": t0, "t1": t1,
+                  "from_pe": from_pe})
         _clear(slots, pe)
 
     if isinstance(win, SharedMemWindow):
@@ -237,9 +242,9 @@ def _pe_body(cfg, pe: int, rec_q) -> None:
         backend = win.global_window.backend
     else:
         g_rmw, l_rmw, backend = 0, 0, "queue"
-    rec_q.put({"kind": "exit", "pe": pe, "pid": os.getpid(),
-               "n_chunks": n_chunks, "n_orphans": n_orphans,
-               "rmw_global": g_rmw, "rmw_local": l_rmw, "backend": backend})
+    rec.send({"kind": "exit", "pe": pe, "pid": os.getpid(),
+              "n_chunks": n_chunks, "n_orphans": n_orphans,
+              "rmw_global": g_rmw, "rmw_local": l_rmw, "backend": backend})
 
 
 def hammer_main(desc, key: str, ops: int, barrier, out_q) -> None:

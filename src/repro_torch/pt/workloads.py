@@ -15,7 +15,9 @@ travels to the worker by pickle, so it must be a module-level function (or
   * ``die_at`` -- kills the process (``os._exit``) when a chosen PE first
     reaches a chosen iteration: the deterministic mid-chunk death used by
     the fault-tolerance tests.  Dying at a sub-block boundary keeps the
-    crash slot's high-water mark exact (see DESIGN.md Sec. 11).
+    crash slot's high-water mark exact (see DESIGN.md Sec. 11).  The
+    other PEs hold their first sub-block until the victim has its first
+    chunk (``wait_for_victim``), so that chunk is one of the first P.
 
 ``alloc_hits``/``read_hits`` manage the hits array; workers attach it once
 per process (cached); the creating process owns its lifetime.
@@ -74,6 +76,48 @@ def sleep_iters_var(costs, a: int, b: int) -> None:
 
 
 _calls = 0  # per-process count of the victim's executed sub-blocks
+GATE_S = 5.0  # the longest a PE waits for the victim's first chunk
+_gated = False  # per process: this PE's first sub-block has been held
+
+
+def _gone(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return True
+    except PermissionError:
+        pass
+    return False
+
+
+def wait_for_victim(victim_pe: int) -> None:
+    """Hold this PE's first sub-block until ``victim_pe`` has published its
+    first chunk to its crash slot (its ``SEQ`` >= 1), the victim process is
+    gone, or ``GATE_S`` seconds pass.
+
+    Each other PE has then claimed one chunk and waits in it, so the
+    victim's first claim is among the first P: a fac2 batch-0 chunk,
+    however late the OS schedules the victim.  The gate makes a test
+    workload deterministic; the claims stay first-come.  A no-op for the
+    victim itself, after this PE's first call, and outside a worker
+    process (the two-sided master runs in the parent, which has no
+    slots)."""
+    global _gated
+    from . import worker
+
+    slots = worker.SLOTS
+    if _gated or slots is None or worker.CURRENT_PE == victim_pe:
+        return
+    _gated = True
+    b = victim_pe * worker.SLOT_FIELDS
+    if b >= len(slots):  # no such PE
+        return
+    deadline = time.monotonic() + GATE_S
+    while slots[b + worker.SEQ] < 1 and time.monotonic() < deadline:
+        pid = slots[b + worker.PID]
+        if pid and _gone(pid):
+            return
+        time.sleep(0.0005)
 
 
 def die_at(name: str, victim_pe: int, die_after: int, cost_us: float,
@@ -81,11 +125,12 @@ def die_at(name: str, victim_pe: int, die_after: int, cost_us: float,
     """work_fn: ``mark_hits`` + sleep, but the victim PE dies (SIGKILL-style
     ``os._exit``) on its ``die_after + 1``-th handed sub-block -- *before*
     executing it, so the crash slot's high-water mark is exact and the
-    remainder is recoverable.  Deterministic: every PE is guaranteed its
-    batch-0 chunk (claims are independent and barrier-synced), so with
-    ``die_after >= 1`` the victim dies *mid-chunk* whenever its first chunk
-    spans multiple sub-blocks -- exercising both salvage (executed prefix)
-    and orphaning (unexecuted remainder)."""
+    remainder is recoverable.  Deterministic: every other PE holds its
+    first sub-block until the victim has claimed (``wait_for_victim``), so
+    the victim's first chunk is a batch-0 one, and with ``die_after >= 1``
+    the victim dies *mid-chunk* whenever that chunk spans multiple
+    sub-blocks -- exercising both salvage (executed prefix) and orphaning
+    (unexecuted remainder)."""
     global _calls
     from . import worker
 
@@ -93,6 +138,8 @@ def die_at(name: str, victim_pe: int, die_after: int, cost_us: float,
         if _calls >= die_after:
             os._exit(77)
         _calls += 1
+    else:
+        wait_for_victim(victim_pe)
     if cost_us:
         time.sleep((b - a) * cost_us * 1e-6)
     mark_hits(name, a, b)

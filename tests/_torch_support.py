@@ -295,10 +295,12 @@ def grads_close(cfg, got, want, rel):
 # the examples: the port's (examples/*_torch.py) beside the reference's
 # ---------------------------------------------------------------------------
 
-def run_examples(*calls, timeout=120):
+def run_examples(*calls, timeout=120, check=True):
     """Run each ``(script, args)`` of ``examples/`` in its own subprocess,
     all at once, from the repository root; their stdouts, in order.  A
-    failed run fails the calling test with its output."""
+    failed run fails the calling test with its output; with
+    ``check=False`` each run's ``(returncode, stdout, stderr)`` is returned
+    instead."""
     import os
     import subprocess
     import sys
@@ -320,6 +322,9 @@ def run_examples(*calls, timeout=120):
     try:
         for (script, args), p in zip(calls, procs):
             out, err = p.communicate(timeout=timeout)
+            if not check:
+                outs.append((p.returncode, out, err))
+                continue
             assert p.returncode == 0, f"{script} {args} exited {p.returncode}:\n{out}\n{err[-3000:]}"
             outs.append(out)
     finally:

@@ -7,6 +7,7 @@ import math
 import re
 
 import numpy as np
+import pytest
 
 from _torch_support import run_examples
 from repro_torch.core import LoopSpec, plan
@@ -43,19 +44,50 @@ def test_dls_hierarchical_matches_reference():
     assert "global RMWs cut" in p_lines[3]
 
 
+PROCESSES_TITLES = ("one-sided P=8", "hierarchical 2 nodes", "PE 2 dies mid-chunk")
+
+
+def _processes_runs(out):
+    return [ln for ln in out.splitlines() if not ln.startswith(" ")]
+
+
+def _reference_fault(rc, out, err, N):
+    """One of the reference's two documented faults at its run 3
+    (ROADMAP.md §3), which the port repairs: PE 2 got no chunk, so
+    nobody died and the example raised ``StopIteration``; or PE 2 died
+    but a chunk record died with it, so ``iters`` < N."""
+    runs = _processes_runs(out)
+    if [r[:24].rstrip() for r in runs] != list(PROCESSES_TITLES):
+        return False
+    if rc != 0:  # run 3 printed its line, then found no dead PE
+        return "deaths" not in runs[2] and err.rstrip().endswith("StopIteration")
+    return ("deaths=1" in runs[2]
+            and int(re.search(r"iters=(\d+)", runs[2])[1]) < N)
+
+
 def test_dls_processes_matches_reference():
-    # the example's own size: at --n 400 --cost-us 50 a loaded host starts
-    # PE 2 after the first batch is claimed, and then in both packages it
-    # may never die (the reference's example raises StopIteration) or its
-    # last chunk's record may die with it (ROADMAP.md §3)
+    # one example after the other, at the example's own size.  The port
+    # is held exactly: its PE 2 dies in its batch-0 chunk (workloads.die_at
+    # holds the other PEs' first sub-block until PE 2 has claimed) and every
+    # record it sent reaches the parent.  The reference keeps both faults
+    # (ROADMAP.md §3): a run of it showing one is run again, three in all
     N, P, nodes = 2000, 8, 2
-    port, ref = run_examples(("dls_processes_torch.py", ()), ("dls_processes.py", ()))
-    titles = ("one-sided P=8", "hierarchical 2 nodes", "PE 2 dies mid-chunk")
+    (port,) = run_examples(("dls_processes_torch.py", ()))
+    tries = []
+    for _ in range(3):
+        ((rc, ref, err),) = run_examples(("dls_processes.py", ()), check=False)
+        tries.append((rc, ref, err))
+        if not _reference_fault(rc, ref, err, N):
+            break
+    else:
+        pytest.fail("the reference's example showed a documented fault in all "
+                    "three runs:\n" + "\n".join(f"exit {rc}\n{o}\n{e[-1500:]}"
+                                                 for rc, o, e in tries))
+    assert rc == 0, f"dls_processes.py exited {rc}:\n{ref}\n{err[-3000:]}"
     got = {}
     for name, out in (("port", port), ("ref", ref)):
-        lines = out.splitlines()
-        runs = [ln for ln in lines if not ln.startswith(" ")]
-        assert [r[:24].rstrip() for r in runs] == list(titles), out
+        runs = _processes_runs(out)
+        assert [r[:24].rstrip() for r in runs] == list(PROCESSES_TITLES), out
         for r in runs:
             assert f"iters={N}" in r, r
         assert "deaths=1" in runs[2] and "deaths" not in runs[0] + runs[1]
@@ -67,13 +99,14 @@ def test_dls_processes_matches_reference():
     # the drain, in either package: equal up to that race
     assert abs(got["port"][0] - got["ref"][0]) <= 2 * nodes
     assert got["port"][1] > got["port"][0] > 0
-    # PE 2 dies on its second sub-block of 16 (progress=16): mid-chunk,
-    # its prefix salvaged and the rest of the fac2 chunk it held orphaned
-    # (its batch-0 chunk, 16 + 109, unless it started late)
-    sizes = set(plan(LoopSpec("fac2", N=N, P=P))[0].tolist())
-    for name in ("port", "ref"):
-        salvaged, orphaned = got[name][2:]
-        assert salvaged in (0, 16) and salvaged + orphaned in sizes, (name, got[name])
+    # PE 2 dies on its second sub-block of 16 (progress=16): mid-chunk, its
+    # prefix salvaged and the rest of the fac2 chunk it held orphaned.  The
+    # port's is its batch-0 chunk, 16 + 109; the reference's is that chunk
+    # unless PE 2 started late
+    sizes = plan(LoopSpec("fac2", N=N, P=P))[0]
+    assert got["port"][2:] == (16, int(sizes[0]) - 16) == (16, 109), got["port"]
+    salvaged, orphaned = got["ref"][2:]
+    assert salvaged in (0, 16) and salvaged + orphaned in set(sizes.tolist()), got["ref"]
 
 
 def _pgm(path):
