@@ -45,6 +45,7 @@ import torch
 
 from repro_torch.core.chunk_calculus import max_steps_bound, tss_constants
 from repro_torch.kernels import _build
+from repro_torch.spans import count, span
 
 from .chunk_calculus import chunk_size_device, gss_constants, host_spec
 
@@ -210,35 +211,41 @@ def claim_schedule(
     ``"cuda"``): CUDA launches the protocol kernel, CPU runs its plain
     version.
     """
-    spec = host_spec(technique, N, P, chunk, max_chunk)
-    S = int(max_steps or max_steps_bound(spec))
-    csum = cost_prefix_sum(costs, N)
-    if slab is None:
-        dev = _build.target_device(device, "claim_schedule")
-        slab = torch.zeros(max(i_slot, lp_slot) + 1, dtype=torch.int32, device=dev)
-    cap = int(slab.shape[0])
-    if not (0 <= i_slot < cap and 0 <= lp_slot < cap and i_slot != lp_slot):
-        raise ValueError(f"bad counter slots ({i_slot}, {lp_slot}) "
-                         f"for slab of capacity {cap}")
-    kw = dict(technique=technique, N=N, P=P, chunk=chunk, max_chunk=max_chunk,
-              S=S, i_slot=i_slot, lp_slot=lp_slot,
-              # i < 2*S here (resumed loops start past 0), so the GSS
-              # double-float power walks only that many bits
-              i_bits=(2 * S).bit_length())
-    if slab.device.type == "cpu":
-        sched, clocks, counts = _claim_loop_plain(slab, torch.from_numpy(csum), **kw)
-    else:
-        sched, clocks, counts = _claim_loop_cuda(
-            slab, torch.from_numpy(csum).to(slab.device), **kw)
+    with span("repro_torch.claim_schedule"):
+        spec = host_spec(technique, N, P, chunk, max_chunk)
+        S = int(max_steps or max_steps_bound(spec))
+        csum = cost_prefix_sum(costs, N)
+        if slab is None:
+            dev = _build.target_device(device, "claim_schedule")
+            slab = torch.zeros(max(i_slot, lp_slot) + 1, dtype=torch.int32, device=dev)
+        cap = int(slab.shape[0])
+        if not (0 <= i_slot < cap and 0 <= lp_slot < cap and i_slot != lp_slot):
+            raise ValueError(f"bad counter slots ({i_slot}, {lp_slot}) "
+                             f"for slab of capacity {cap}")
+        kw = dict(technique=technique, N=N, P=P, chunk=chunk, max_chunk=max_chunk,
+                  S=S, i_slot=i_slot, lp_slot=lp_slot,
+                  # i < 2*S here (resumed loops start past 0), so the GSS
+                  # double-float power walks only that many bits
+                  i_bits=(2 * S).bit_length())
+        on_card = slab.device.type != "cpu"
+        if on_card:
+            count("h2d_bytes", csum.nbytes)
+            sched, clocks, counts = _claim_loop_cuda(
+                slab, torch.from_numpy(csum).to(slab.device), **kw)
+        else:
+            sched, clocks, counts = _claim_loop_plain(slab, torch.from_numpy(csum), **kw)
 
-    sched = sched.cpu().numpy()
-    n = int((sched[:, 1] >= 0).sum())  # granted rows form a prefix
-    return DeviceSchedule(
-        technique=technique, N=N, P=P, chunk=chunk,
-        steps=sched[:n, 0].copy(), workers=sched[:n, 1].copy(),
-        starts=sched[:n, 2].copy(), sizes=sched[:n, 3].copy(),
-        counts=counts.cpu().numpy().astype(np.int64),
-        clocks=clocks.cpu().numpy(), slab=slab)
+        # the host waits here for the protocol kernel
+        with span("repro_torch.claim_schedule.readback"):
+            sched, counts, clocks = (t.cpu().numpy() for t in (sched, counts, clocks))
+            if on_card:
+                count("d2h_bytes", sched.nbytes + counts.nbytes + clocks.nbytes)
+        n = int((sched[:, 1] >= 0).sum())  # granted rows form a prefix
+        return DeviceSchedule(
+            technique=technique, N=N, P=P, chunk=chunk,
+            steps=sched[:n, 0].copy(), workers=sched[:n, 1].copy(),
+            starts=sched[:n, 2].copy(), sizes=sched[:n, 3].copy(),
+            counts=counts.astype(np.int64), clocks=clocks, slab=slab)
 
 
 def schedule_timeline(schedule: DeviceSchedule, costs=None):

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.spans import count, span
 
 from .kernel import DTYPE_CODE, check_kernel_inputs
 from .ops import placed, refuse_grad
@@ -118,7 +119,10 @@ def _persistent_cuda(nclaims, starts, sizes, q, k, v, lengths, *, causal,
         q, k, v, blk_q, blk_k, "flash_attention_persistent")
     W, C = starts.shape
     dev = q.device
-    tables = [torch.as_tensor(a, device=dev) for a in (nclaims, starts, sizes, lengths)]
+    with span("repro_torch.tables_upload"):
+        arrays = (nclaims, starts, sizes, lengths)
+        tables = [torch.as_tensor(a, device=dev) for a in arrays]
+        count("h2d_bytes", sum(a.nbytes for a in arrays))
     for name, t, shape in zip(("nclaims", "starts", "sizes", "lengths"), tables,
                               ((W,), (W, C), (W, C), (B,))):
         _build.require_cuda(t, name, torch.int32, shape)
@@ -165,38 +169,41 @@ def flash_attention_persistent(
     """
     from repro_torch.device.persistent import claim_schedule
 
-    refuse_grad((q, k, v), "flash_attention_persistent")
-    q, k, v = placed((q, k, v), device, "flash_attention_persistent")
-    B, H, Tq, D = q.shape
-    _, Hkv, Tk, _ = k.shape
-    if Hkv == 0 or H % Hkv:
-        raise ValueError(f"GQA requires H={H} divisible by Hkv={Hkv}")
-    scale = (D ** -0.5) if scale is None else scale
-    nq = -(-Tq // blk_q)
+    with span("repro_torch.flash_attention_persistent"):
+        refuse_grad((q, k, v), "flash_attention_persistent")
+        q, k, v = placed((q, k, v), device, "flash_attention_persistent")
+        B, H, Tq, D = q.shape
+        _, Hkv, Tk, _ = k.shape
+        if Hkv == 0 or H % Hkv:
+            raise ValueError(f"GQA requires H={H} divisible by Hkv={Hkv}")
+        scale = (D ** -0.5) if scale is None else scale
+        nq = -(-Tq // blk_q)
 
-    if lengths is None:
-        lengths = np.full(B, Tk, np.int32)
-    lengths = np.asarray(lengths, np.int32)
-    if lengths.shape != (B,):
-        raise ValueError(f"lengths must have shape ({B},), got {lengths.shape}")
-    if ((lengths < 0) | (lengths > Tk)).any():
-        raise ValueError(f"lengths must lie in [0, Tk={Tk}], got {lengths.tolist()}")
+        if lengths is None:
+            lengths = np.full(B, Tk, np.int32)
+        lengths = np.asarray(lengths, np.int32)
+        if lengths.shape != (B,):
+            raise ValueError(f"lengths must have shape ({B},), got {lengths.shape}")
+        if ((lengths < 0) | (lengths > Tk)).any():
+            raise ValueError(f"lengths must lie in [0, Tk={Tk}], got {lengths.tolist()}")
 
-    N = B * H * nq
-    if schedule is None:
-        if costs is None:
-            costs = varlen_tile_costs(lengths, H, nq, blk_q, blk_k, causal)
-        schedule = claim_schedule(technique, N, workers, chunk=chunk,
-                                  costs=costs, device=q.device)
-    if schedule.N != N or schedule.P != workers:
-        raise ValueError(
-            f"schedule is for (N={schedule.N}, P={schedule.P}), "
-            f"this tile space needs (N={N}, P={workers})")
-    if int(schedule.sizes.sum()) != N:
-        raise ValueError("schedule does not cover the tile space "
-                         f"({int(schedule.sizes.sum())} of {N} tiles)")
-    nclaims, starts, sizes = schedule.worker_lists()
-    run = _persistent_plain if q.device.type == "cpu" else _persistent_cuda
-    out = run(nclaims, starts, sizes, q, k, v, lengths, causal=causal,
-              scale=scale, blk_q=blk_q, blk_k=blk_k)
+        N = B * H * nq
+        if schedule is None:
+            if costs is None:
+                with span("repro_torch.varlen_tile_costs"):
+                    costs = varlen_tile_costs(lengths, H, nq, blk_q, blk_k, causal)
+            schedule = claim_schedule(technique, N, workers, chunk=chunk,
+                                      costs=costs, device=q.device)
+        if schedule.N != N or schedule.P != workers:
+            raise ValueError(
+                f"schedule is for (N={schedule.N}, P={schedule.P}), "
+                f"this tile space needs (N={N}, P={workers})")
+        if int(schedule.sizes.sum()) != N:
+            raise ValueError("schedule does not cover the tile space "
+                             f"({int(schedule.sizes.sum())} of {N} tiles)")
+        with span("repro_torch.worker_lists"):
+            nclaims, starts, sizes = schedule.worker_lists()
+        run = _persistent_plain if q.device.type == "cpu" else _persistent_cuda
+        out = run(nclaims, starts, sizes, q, k, v, lengths, causal=causal,
+                  scale=scale, blk_q=blk_q, blk_k=blk_k)
     return out, schedule

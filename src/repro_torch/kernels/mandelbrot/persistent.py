@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.spans import count, span
 
 from .ref import escape_counts, geometry
 
@@ -56,9 +57,11 @@ def _persistent_cuda(nclaims, starts, sizes, *, width, height, ct, xlim, ylim,
                      block_h, block_w, gw, device):
     """Launch ``workers`` persistent CTAs over their claim tables."""
     W, C = starts.shape
-    nclaims_t = torch.as_tensor(nclaims, device=device)
-    starts_t = torch.as_tensor(starts, device=device)
-    sizes_t = torch.as_tensor(sizes, device=device)
+    with span("repro_torch.tables_upload"):
+        nclaims_t = torch.as_tensor(nclaims, device=device)
+        starts_t = torch.as_tensor(starts, device=device)
+        sizes_t = torch.as_tensor(sizes, device=device)
+        count("h2d_bytes", nclaims.nbytes + starts.nbytes + sizes.nbytes)
     for name, t, shape in (("nclaims", nclaims_t, (W,)), ("starts", starts_t, (W, C)),
                            ("sizes", sizes_t, (W, C))):
         _build.require_cuda(t, name, torch.int32, shape)
@@ -104,27 +107,29 @@ def mandelbrot_persistent(
     """
     from repro_torch.device.persistent import claim_schedule
 
-    height = width if height is None else height
-    device = _build.target_device(device, "mandelbrot_persistent")
-    gh = -(-height // block_h)
-    gw = -(-width // block_w)
-    N = gh * gw
+    with span("repro_torch.mandelbrot_persistent"):
+        height = width if height is None else height
+        device = _build.target_device(device, "mandelbrot_persistent")
+        gh = -(-height // block_h)
+        gw = -(-width // block_w)
+        N = gh * gw
 
-    if schedule is None:
-        schedule = claim_schedule(technique, N, workers, chunk=chunk,
-                                  costs=costs, device=device)
-    if schedule.N != N or schedule.P != workers:
-        raise ValueError(
-            f"schedule is for (N={schedule.N}, P={schedule.P}), "
-            f"this grid needs (N={N}, P={workers})")
-    if int(schedule.sizes.sum()) != N:
-        raise ValueError("schedule does not cover the tile grid "
-                         f"({int(schedule.sizes.sum())} of {N} tiles)")
-    nclaims, starts, sizes = schedule.worker_lists()
-    run = _persistent_plain if device.type == "cpu" else _persistent_cuda
-    out = run(nclaims, starts, sizes, width=width, height=height, ct=ct,
-              xlim=xlim, ylim=ylim, block_h=block_h, block_w=block_w, gw=gw,
-              device=device)
+        if schedule is None:
+            schedule = claim_schedule(technique, N, workers, chunk=chunk,
+                                      costs=costs, device=device)
+        if schedule.N != N or schedule.P != workers:
+            raise ValueError(
+                f"schedule is for (N={schedule.N}, P={schedule.P}), "
+                f"this grid needs (N={N}, P={workers})")
+        if int(schedule.sizes.sum()) != N:
+            raise ValueError("schedule does not cover the tile grid "
+                             f"({int(schedule.sizes.sum())} of {N} tiles)")
+        with span("repro_torch.worker_lists"):
+            nclaims, starts, sizes = schedule.worker_lists()
+        run = _persistent_plain if device.type == "cpu" else _persistent_cuda
+        out = run(nclaims, starts, sizes, width=width, height=height, ct=ct,
+                  xlim=xlim, ylim=ylim, block_h=block_h, block_w=block_w, gw=gw,
+                  device=device)
     return out, schedule
 
 
