@@ -20,8 +20,13 @@ protocol and applications through the port's public entry points:
      ``repro_torch.device.protocol_timing``);
   3. the static Mandelbrot kernel at 4096x4096, CT 2000;
   4. the persistent Mandelbrot kernel over the gss, fac2 and ss schedules
-     (then, timed, each worker's busy time alone against its modeled
-     clock: the "workers" lines);
+     passed in (host-built claim tables) and claimed by the entry itself
+     (the claim tables built on the card behind the protocol kernel, held
+     exactly to the host's tables of the same schedule, there and at the
+     paper's 1152x1152 one-pixel ss loop; then timed, the ``claim_tables``
+     row beside numpy and a ``torch.sort`` version), then, timed, each
+     worker's busy time alone against its modeled clock: the "workers"
+     lines);
   5. PSIA spin images: 800,000 points (the paper's object size) and 8,192
      images, W=5, support angle 2.0, bin size 0.05 (and how many pairs the
      exact tests pass: the "gate" line and the row's bound);
@@ -199,6 +204,7 @@ BF16_FLOPS_PER_S = 989e12
 
 TECHNIQUES = ("static", "ss", "gss", "tss", "fac2")
 IMG, CT, TILE = 4096, 2000, 64
+PIXELS = 1152  # the paper's image (arXiv:1901.02773, Fig. 5), one pixel an iteration
 N_POINTS, N_IMAGES, IMG_W, SUPPORT, BIN = 800_000, 8192, 5, 2.0, 0.05
 # Mandelbrot: 13 f32 arithmetic operations and one compare per iteration
 # (|z|^2's two products are the next iteration's zr*zr and zi*zi); bounds
@@ -361,15 +367,63 @@ def worker_times(schedule, run):
     import numpy as np
     import torch
 
-    nclaims, starts, sizes = schedule.worker_lists()
-    run(nclaims, starts, sizes)
+    nclaims, *flat = schedule.tables()
+    flat = [torch.from_numpy(a).cuda() for a in flat]  # first, starts, sizes
+    run(nclaims, *flat)
     times = []
     for w in range(len(nclaims)):
         only = np.zeros_like(nclaims)
         only[w] = nclaims[w]
         nc = torch.from_numpy(only).cuda()
-        times.append(cuda_ms(lambda: run(nc, starts, sizes), reps=1, warmup=False))
+        times.append(cuda_ms(lambda: run(nc, *flat), reps=1, warmup=False))
     return np.array(times)
+
+
+def card_tables_error(card, schedule) -> int:
+    """max |card - host| over the claim tables the card built behind the
+    protocol kernel (``PendingClaim.tables``, read back) against the host's
+    flat ``schedule.tables()`` and, worker by worker, its padded
+    ``worker_lists()``; 0 when they are equal."""
+    import numpy as np
+
+    card = [t.cpu().numpy().astype(np.int64) for t in card]
+    host = schedule.tables()
+    err = max((int(np.abs(c[:len(h)] - h).max()) if len(h) else 0)
+              for c, h in zip(card, host))
+    nclaims, first, starts, sizes = card
+    w_n, w_starts, w_sizes = schedule.worker_lists()
+    err = max(err, int(np.abs(nclaims - w_n).max()))
+    for w, n in enumerate(w_n):
+        at = slice(first[w], first[w] + n)
+        for c, h in ((starts[at], w_starts[w, :n]), (sizes[at], w_sizes[w, :n])):
+            if n:
+                err = max(err, int(np.abs(c - h).max()))
+    return err
+
+
+def tables_by_sort(claim):
+    """The claim tables by PyTorch library calls on the card, the same
+    layout as the table kernels': a stable sort of the schedule's rows by
+    worker (ungranted rows last), two gathers, the counts' exclusive
+    prefix sum."""
+    import torch
+
+    sched, counts = claim._sched, claim._counts
+    key = torch.where(sched[:, 1] >= 0, sched[:, 1], claim.P)
+    rows = sched[torch.sort(key, stable=True).indices]
+    return (counts, (torch.cumsum(counts, 0) - counts).int(),
+            rows[:, 2].contiguous(), rows[:, 3].contiguous())
+
+
+def claim_tables_bytes(schedule, S: int, chunk: int) -> int:
+    """DRAM bytes the three table kernels move: the rank kernel reads the
+    granted rows (16 bytes each, their sectors) and one group of 32 rows a
+    chunk past them, writes a rank a granted row and a count a worker a
+    chunk; the offset kernel reads and writes the chunk counts; the scatter
+    reads every row and the granted rows' ranks and writes 8 bytes a
+    grant."""
+    n, P, chunks = schedule.n_steps, schedule.P, max(1, -(-S // chunk))
+    return 16 * (n + 32 * chunks) + 4 * n + 12 * chunks * P + 16 * S + 4 * n + 8 * n
 
 
 def report_workers(name, real_ms, iters, full_ms):
@@ -621,7 +675,7 @@ def attention_path(dev, P: int, static_launches: int):
         d_ref = max(close(out[b:b + 1], r, 1e-5)[1] for b, r in enumerate(refs))
         check(d_ref <= 1e-5, f"persistent {t}: rows == oracle within 1e-5 (max {d_ref!r})")
         ok, d_plain = close(out, _persistent_plain(
-            *sched.worker_lists(), qv, kv, vv, lengths, causal=True, scale=scale,
+            *sched.tables(), qv, kv, vv, lengths, causal=True, scale=scale,
             blk_q=blk, blk_k=blk), 1e-5)
         check(ok, f"persistent {t}: kernel == plain within 1e-5 (max {d_plain!r})")
         err.setdefault("persistent_f32", d_plain)
@@ -630,7 +684,7 @@ def attention_path(dev, P: int, static_launches: int):
               f"oracle| {d_ref!r}, |kernel - plain| {d_plain!r}")
     ok, d = close(full, static["f32"], 1e-5)
     check(ok, f"persistent (full lengths) == static within 1e-5 (max {d!r})")
-    tables16 = sched16.worker_lists()
+    tables16 = sched16.tables()
     ok, err["persistent_bf16"], slack = bf16_close(pers16, _persistent_plain(
         *tables16, qv16, kv16, vv16, lengths, causal=True, scale=scale,
         blk_q=blk, blk_k=blk))
@@ -667,17 +721,17 @@ def attention_path(dev, P: int, static_launches: int):
         print(f"time flash_attention {dt} B={B}: {ms!r} ms "
               f"({4 * D * pairs / ms / 1e9!r} TFLOP/s); plain {plain!r} ms; "
               f"sdpa {lib!r} ms; bound {b_static[0]!r} ms ({b_static[1]})")
-        tables = sched16.worker_lists() if dt == "bf16" else pers["gss"][1].worker_lists()
+        tables = sched16.tables() if dt == "bf16" else pers["gss"][1].tables()
         for t in PERSISTENT_TECHNIQUES:
             print(f"time flash_attention_persistent {dt} over the {t} schedule: "
-                  f"{persistent_ms(pers[t][1].worker_lists(), (lq, lk, lv))!r} ms")
+                  f"{persistent_ms(pers[t][1].tables(), (lq, lk, lv))!r} ms")
         p_ms = persistent_ms(tables, (lq, lk, lv))
         p_plain = cuda_ms(lambda: _persistent_plain(
             *tables, lq, lk, lv, lengths, causal=True, scale=scale, blk_q=blk, blk_k=blk))
         p_static = cuda_ms(lambda: flash_attention(lq, lk, lv, causal=True, **blocks))
         p_lib = sdpa_ms(lq, lk, lv, attn_mask=var_mask)
         b_var = bound(size * 2 * (lq.numel() + lk.numel())
-                      + 4 * (VB + P + 2 * tables[1].size), 4 * D * var_pairs, rate)
+                      + 4 * (VB + 2 * P + 2 * tables.starts.size), 4 * D * var_pairs, rate)
         print(f"time varlen {dt} B={VB}: persistent (gss) {p_ms!r} ms "
               f"({4 * D * var_pairs / p_ms / 1e9!r} TFLOP/s); static over "
               f"the padded batch {p_static!r} ms; plain {p_plain!r} ms; sdpa with a "
@@ -2976,7 +3030,7 @@ def main() -> int:
     from repro_torch.core.chunk_calculus import max_steps_bound, plan
     from repro_torch.device import claim_schedule, host_spec, slab_to_numpy
     from repro_torch.device.persistent import (
-        _claim_loop_plain, cost_prefix_sum)
+        _RANK_CHUNK as RANK_CHUNK, _claim_loop_plain, cost_prefix_sum, launch_claim)
     from repro_torch.device.protocol_timing import (
         chain_floor, main_path_cases, protocol_times)
     from repro_torch.device.window import fetch_add_slab
@@ -3030,13 +3084,17 @@ def main() -> int:
     persistent = {t: mandelbrot_persistent(
         IMG, ct=CT, block_h=TILE, block_w=TILE, workers=P, schedule=schedules[t])[0]
         for t in schedules}
+    # the entry's own claim: the protocol, table and compute kernels on one stream
+    claimed = {t: mandelbrot_persistent(IMG, ct=CT, block_h=TILE, block_w=TILE, workers=P,
+                                        technique=t, costs=costs)
+               for t in schedules}
     spins = spin_images(points, normals, N_IMAGES, img_width=IMG_W,
                         bin_size=BIN, support_angle=SUPPORT)
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t_main
     launches = dict(_build.LAUNCHES)
     print(f"main path: {main_s:.2f} s wall, launches {launches}")
-    for k in ("window_fetch_add", "protocol", "mandelbrot_static",
+    for k in ("window_fetch_add", "protocol", "claim_tables", "mandelbrot_static",
               "mandelbrot_persistent", "spin_image"):
         check(launches[k] > 0, f"kernel {k} was not launched on the main path")
 
@@ -3095,14 +3153,37 @@ def main() -> int:
     # -- 4. Mandelbrot persistent == static ----------------------------------
     for t, out in persistent.items():
         check(torch.equal(out, image), f"persistent ({t}) == static exactly")
-    nclaims, pst, psz = schedules["gss"].worker_lists()
-    pers_plain = _persistent_plain(nclaims, pst, psz, width=IMG, height=IMG,
+    for t, (out, sched) in claimed.items():
+        check(torch.equal(out, image), f"persistent ({t}, claimed by the entry) == static")
+        for f in ("steps", "workers", "starts", "sizes", "counts", "clocks"):
+            check(np.array_equal(getattr(sched, f), getattr(schedules[t], f)),
+                  f"{t}: the entry's schedule {f} == claim_schedule's")
+    tabs = schedules["gss"].tables()
+    pers_plain = _persistent_plain(*tabs, width=IMG, height=IMG,
                                    ct=CT, xlim=(-2.0, 1.0), ylim=(-1.5, 1.5),
                                    block_h=TILE, block_w=TILE, gw=IMG // TILE,
                                    device=dev)
     check(torch.equal(pers_plain, persistent["gss"]), "persistent kernel == plain")
     err["mandelbrot_persistent"] = float((pers_plain - persistent["gss"]).abs().max())
-    print("mandelbrot persistent (gss, fac2, ss) == static exactly; == plain")
+    print("mandelbrot persistent (gss, fac2, ss; passed in and claimed by the entry) "
+          "== static exactly; == plain")
+    # the card's claim tables against the host's, at the main path's shapes
+    # and at the paper's one-pixel ss loop (1,327,104 grants, many rank chunks)
+    table_cases = {t: (t, N, costs) for t in schedules}
+    table_cases["ss pixels"] = ("ss", PIXELS * PIXELS, None)
+    claims = {}
+    for name, (t, n_, c_) in table_cases.items():
+        claim = launch_claim(t, n_, P, costs=c_, device=dev)
+        card = claim.tables()
+        claims[name] = claim, claim.read_back()
+        e = card_tables_error(card, claims[name][1])
+        lib = tables_by_sort(claim)
+        e_lib = card_tables_error(lib, claims[name][1])
+        check(e == 0 and e_lib == 0, f"claim tables {name}: card == host tables and "
+                                     f"worker_lists (max {e}; torch.sort version {e_lib})")
+        err["claim_tables"] = max(err.get("claim_tables", 0), e)
+    print(f"claim tables (gss, fac2, ss at N={N}; ss at {PIXELS}x{PIXELS} pixels, "
+          f"{claims['ss pixels'][1].n_steps} grants) == the host's tables exactly")
 
     # -- 5. spin images vs plain ---------------------------------------------
     spin_plain = spin_images_oracle(points, normals, N_IMAGES, img_width=IMG_W,
@@ -3146,7 +3227,8 @@ def main() -> int:
         host_ms(lambda: fetch_add_slab(cslab, 0, 1)), 12, 1, "host CPU")
 
     # protocol: every launch of the main path (phase 2's five drains and the
-    # gss (513, 3) one, then the persistent kernels' gss, fac2 and ss tables),
+    # gss (513, 3) one, then the persistent kernels' gss, fac2 and ss tables,
+    # claimed by claim_schedule and again by the entry itself),
     # each from fresh counters, beside the latency bound: its granted steps
     # times the chain floor, the least time an exact earliest-free walk
     # spends on a grant (one warp-wide min, then the owner's compare and
@@ -3166,7 +3248,7 @@ def main() -> int:
               f"{r['event_ms']!r} ms per wrapper call back to back; "
               f"{r['call_ms']!r} ms per claim_schedule call")
     main_launches = ([(t, N, P) for t in TECHNIQUES] + [("gss", 513, 3)]
-                     + [(t, N, P) for t in schedules])
+                     + [(t, N, P) for t in schedules] * 2)  # claim_schedule, the entry
     check(len(main_launches) == launches["protocol"], "the main path's protocol launches")
     main_sum = {k: sum(proto[c][k] for c in main_launches)
                 for k in ("device_ms", "event_ms", "call_ms", "latency_bound_ms")}
@@ -3212,6 +3294,27 @@ def main() -> int:
     print(f"  mandelbrot_static bound at {MANDEL_OPS_PER_ITER_ANEW} operations per "
           f"iteration: {bound(mb_bytes, MANDEL_OPS_PER_ITER_ANEW * sum_counts)[0]!r} ms")
 
+    # the claim tables: the three kernels of one PendingClaim.tables() call
+    # (the launch count is three a call), against numpy on the host and a
+    # torch.sort version on the card; the gss schedule as the other rows,
+    # the ss pixel loop beside it
+    def tables_row(name):
+        claim, sched = claims[name]
+        S = int(claim._sched.shape[0])
+        return (cuda_ms(claim.tables), host_ms(sched.tables), cuda_ms(lambda: tables_by_sort(claim)),
+                bound(claim_tables_bytes(sched, S, RANK_CHUNK), 0))
+
+    tms, tplain, tlib, tbound = tables_row("gss")
+    rows.append(kernel_row("claim_tables", "src/repro_torch/csrc/protocol.cu",
+                           "src/repro/device/persistent.py:135",
+                           launches["claim_tables"], err["claim_tables"], tms, tplain,
+                           tbound, tlib, "host CPU"))
+    pms, pplain, plib, pbound = tables_row("ss pixels")
+    rows[-1].update(kernels_per_call=3, ms_ss_pixels=pms, plain_ms_ss_pixels=pplain,
+                    library_ms_ss_pixels=plib, bound_ms_ss_pixels=pbound[0])
+    print(f"time claim_tables ss over {PIXELS}x{PIXELS} pixels: {pms!r} ms; plain (host "
+          f"CPU) {pplain!r} ms; bound {pbound[0]!r} ms ({pbound[1]}); torch.sort {plib!r} ms")
+
     def run_persistent(*tables):
         return _persistent_cuda(
             *tables, width=IMG, height=IMG, ct=CT, xlim=(-2.0, 1.0),
@@ -3222,7 +3325,7 @@ def main() -> int:
     # worker's modeled iterations on one SM's share of the f32 rate
     pers_ms, sched_bound = {}, {}
     for t in ("gss", "fac2", "ss"):
-        tables = schedules[t].worker_lists()
+        tables = schedules[t].tables()
         pers_ms[t] = cuda_ms(lambda: run_persistent(*tables))
         iters = worker_iterations(schedules[t], costs)
         sched_bound[t] = MANDEL_OPS_PER_ITER * float(iters.max()) / (F32_OPS_PER_S / P) * 1e3
@@ -3235,10 +3338,10 @@ def main() -> int:
     row("mandelbrot_persistent", "src/repro_torch/csrc/mandelbrot.cu",
         "src/repro/kernels/mandelbrot/persistent.py:28", pers_ms["gss"],
         cuda_ms(lambda: _persistent_plain(
-            nclaims, pst, psz, width=IMG, height=IMG, ct=CT, xlim=(-2.0, 1.0),
+            *tabs, width=IMG, height=IMG, ct=CT, xlim=(-2.0, 1.0),
             ylim=(-1.5, 1.5), block_h=TILE, block_w=TILE, gw=IMG // TILE,
             device=dev), **once),
-        mb_bytes + 4 * (P + 2 * pst.size), MANDEL_OPS_PER_ITER * sum_counts)
+        mb_bytes + 4 * (2 * P + 2 * tabs.starts.size), MANDEL_OPS_PER_ITER * sum_counts)
     rows[-1].update(ms_fac2=pers_ms["fac2"], ms_ss=pers_ms["ss"],
                     schedule_bound_ms=sched_bound)
 

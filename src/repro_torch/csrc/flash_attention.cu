@@ -569,9 +569,9 @@ __global__ void __launch_bounds__(kThreadsOf<T>, 1)
 struct PersistentArgs {
     TmaMaps maps;        // as StaticArgs
     const int* nclaims;  // (W,)
-    const int* starts;   // (W, C)
-    const int* sizes;    // (W, C)
-    int C;
+    const int* first;    // (W,): worker w's claims at first[w] + c, c < nclaims[w]
+    const int* starts;   // flat, worker-major
+    const int* sizes;
     const void* q;       // (B*H, Tq, D)
     const void* k;       // (B*Hkv, Tk, D)
     const void* v;
@@ -587,11 +587,12 @@ __global__ void __launch_bounds__(kThreadsOf<T>, 1)
     const int w = blockIdx.x;
     const int group = a.H / a.Hkv;
     const int n = a.nclaims[w];
+    const int at = a.first[w];
     // every claimed tile of this worker, in table order, handed to `f`
     auto for_tiles = [&](auto&& f) {
         for (int c = 0; c < n; ++c) {
-            const int st = a.starts[w * a.C + c];
-            const int sz = a.sizes[w * a.C + c];
+            const int st = a.starts[at + c];
+            const int sz = a.sizes[at + c];
             for (int t = 0; t < sz; ++t) {
                 const int tile = st + t;
                 const int bh = tile / a.nq;
@@ -747,7 +748,8 @@ extern "C" int repro_flash_attention(int device, int dtype, void* q, void* k, vo
 }
 
 extern "C" int repro_flash_attention_persistent(int device, int dtype, void* nclaims,
-                                                void* starts, void* sizes, int workers, int C,
+                                                void* first, void* starts, void* sizes,
+                                                int workers,
                                                 void* q, void* k, void* v, void* lengths,
                                                 void* out, int B, int H, int Hkv, int Tq, int Tk,
                                                 int D, int nq, int blk_q, int blk_k, int causal,
@@ -756,9 +758,9 @@ extern "C" int repro_flash_attention_persistent(int device, int dtype, void* ncl
     if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
     PersistentArgs a{};
     a.nclaims = static_cast<const int*>(nclaims);
+    a.first = static_cast<const int*>(first);
     a.starts = static_cast<const int*>(starts);
     a.sizes = static_cast<const int*>(sizes);
-    a.C = C;
     a.q = q;
     a.k = k;
     a.v = v;

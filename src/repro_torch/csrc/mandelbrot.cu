@@ -23,11 +23,14 @@
 // The persistent kernel launches W CTAs of 1024 threads (one per SM at W =
 // the SM count); CTA w walks its own claim table (variable-sized chunks of
 // the row-major tile space), and the claims partition the tiles, so the
-// CTAs' writes are disjoint.  On an H100 its old body (the static kernel's
-// loop, warps over rows of 32 pixels) ran at about 20 instructions
-// per 16-operation iteration; its heaviest gss worker was at ~79 % of one
-// SM's f32 rate, and workers of tiles where rows of 32 pixels diverge ran
-// up to 1.5x (ss) slower per modeled iteration.  So the body
+// CTAs' writes are disjoint.  Worker w's claims are at first[w] + c for
+// c < nclaims[w] (flat worker-major tables, built on the card by the
+// protocol library or on the host for a schedule passed in).  On an H100
+// its old body (the static kernel's loop, warps over rows of 32 pixels) ran
+// at about 20 instructions per 16-operation iteration; its heaviest gss
+// worker was at ~79 % of one SM's f32 rate, and workers of tiles where rows
+// of 32 pixels diverge ran up to 1.5x (ss) slower per modeled iteration.
+// So the body
 //   - tests for an escape once every kUnroll iterations
 //     (`escape_count_unrolled`): the loop's control and the test are paid
 //     once per run, and |z|^2's products are shared with the next
@@ -130,18 +133,19 @@ __device__ __forceinline__ int escape_count_unrolled(int row, int col, const Man
 }
 
 __global__ void __launch_bounds__(1024)
-mandelbrot_persistent_kernel(int* out, const int* nclaims, const int* starts,
-                             const int* sizes, int C, int gw, int block_h, int block_w,
-                             MandelGeom g) {
+mandelbrot_persistent_kernel(int* out, const int* nclaims, const int* first,
+                             const int* starts, const int* sizes, int gw, int block_h,
+                             int block_w, MandelGeom g) {
     const int w = blockIdx.x;
     const int n = nclaims[w];
+    const int at = first[w];  // this worker's claims: at + c, c < n
     // the tile padded to whole patches, patches row-major: warp-step p / 32
     // takes patch p / 32, lane p % 32 its pixel (lane / kPatchW, lane % kPatchW)
     const int patch_cols = (block_w + kPatchW - 1) / kPatchW;
     const int padded = (block_h + kPatchH - 1) / kPatchH * patch_cols * 32;
     for (int c = 0; c < n; ++c) {
-        const int st = starts[w * C + c];
-        const int sz = sizes[w * C + c];
+        const int st = starts[at + c];
+        const int sz = sizes[at + c];
         for (int tile = st; tile < st + sz; ++tile) {
             const int ti = tile / gw;
             const int tj = tile - ti * gw;
@@ -175,8 +179,8 @@ extern "C" int repro_mandelbrot_static(int device, void* out, int width, int hei
     return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int repro_mandelbrot_persistent(int device, void* out, void* nclaims, void* starts,
-                                           void* sizes, int workers, int C, int gw,
+extern "C" int repro_mandelbrot_persistent(int device, void* out, void* nclaims, void* first,
+                                           void* starts, void* sizes, int workers, int gw,
                                            int block_h, int block_w, int width, int height,
                                            int ct, float xmin, float dx, float ymin, float dy,
                                            void* stream) {
@@ -185,7 +189,7 @@ extern "C" int repro_mandelbrot_persistent(int device, void* out, void* nclaims,
     const MandelGeom g{width, height, ct, xmin, dx, ymin, dy};
     mandelbrot_persistent_kernel<<<workers, 1024, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<int*>(out), static_cast<const int*>(nclaims),
-        static_cast<const int*>(starts), static_cast<const int*>(sizes), C, gw,
-        block_h, block_w, g);
+        static_cast<const int*>(first), static_cast<const int*>(starts),
+        static_cast<const int*>(sizes), gw, block_h, block_w, g);
     return static_cast<int>(cudaGetLastError());
 }

@@ -47,11 +47,35 @@
 //      protocol's two RMWs a grant are made on the kernel's on-chip image of
 //      the slab, as the TPU kernel makes them on its aliased copy.
 //
+// The claim tables, after the walk on the same stream (`repro_claim_tables_
+// launch`): the per-worker tables the persistent compute kernels read, flat
+// and worker-major -- worker w's claims at first[w] .. first[w] + count[w] - 1,
+// in grant order -- so that no host step lies between the protocol kernel and
+// the compute kernel.  A grant's place is first[worker] plus its rank among
+// its worker's earlier grants.  The rank is taken here and not in the walk: a
+// slot store in the walk (the worker's count before the grant, selected from
+// the lane's R counts) made the walk 9-12 % slower on an H100, and with the
+// counts in shared memory 65-98 % slower (the owner's load and store stall
+// the in-order warp).  Bound: bytes (each row read twice, 8 bytes scattered a
+// grant), three launches:
+//   a. `claim_ranks_kernel`, a warp per chunk of `chunk` rows, in order:
+//      each 32 rows, __match_any_sync groups the lanes of one worker, a
+//      lane's rank is its chunk's running count of that worker (shared
+//      memory) plus the lanes of its group below it; the group's lowest lane
+//      advances the count.  The chunk's counts go out per worker.
+//   b. `claim_offsets_kernel`, a CTA per worker: first[w], the exclusive
+//      prefix of the claim counts, plus the exclusive scan of w's chunk counts
+//      over the chunks: each chunk's offset for w, in place.
+//   c. `claim_tables_kernel`, grid-stride over the rows: a granted row's
+//      start and size go to its chunk's offset for its worker plus its rank.
+//
 // Numeric trap 4 (clocks): the cost prefix sum arrives from the host, built
 // with the reference's own numpy expression (float64 costs cumulated into a
 // float32 array); a chunk's cost is the f32 difference of two entries, and a
 // clock is an f32 sum taken in grant order.
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 #include "chunk_calculus.cuh"
 #include "device_guard.cuh"
@@ -325,6 +349,96 @@ cudaError_t launch(int* slab, const float* csum, int* sched, float* cost,
     return cudaGetLastError();
 }
 
+constexpr int kTableThreads = 256;    // claim_offsets_kernel, claim_tables_kernel
+constexpr int kTableWarps = kTableThreads / 32;
+constexpr int kTableBlocks = 1024;    // claim_tables_kernel's grid, at most
+
+// (a) Each row's rank among its chunk's earlier rows of its worker into
+// `rank` (S,); the chunk's claims a worker into chunk_counts[chunk * P + w].
+// Granted rows are a prefix, so a warp stops at its first 32 rows without one.
+__global__ void __launch_bounds__(32)
+claim_ranks_kernel(const int* sched, int* rank, int* chunk_counts, int P, int S, int chunk) {
+    extern __shared__ int held[];  // (P,) this chunk's claims a worker so far
+    const int lane = threadIdx.x;
+    for (int j = lane; j < P; j += 32) held[j] = 0;
+    __syncwarp();
+    const int begin = blockIdx.x * chunk;
+    const int end = min(begin + chunk, S);
+    const unsigned lower = (1u << lane) - 1u;  // the lanes below this one
+    for (int base = begin; base < end; base += 32) {
+        const int s = base + lane;
+        const int w = s < end ? sched[4 * s + 1] : -1;
+        if (__ballot_sync(kFullMask, w >= 0) == 0) break;
+        const unsigned group = __match_any_sync(kFullMask, w);
+        const int before = w >= 0 ? held[w] : 0;
+        __syncwarp();
+        if (w >= 0) {
+            rank[s] = before + __popc(group & lower);
+            if ((group & lower) == 0) held[w] = before + __popc(group);
+        }
+        __syncwarp();
+    }
+    for (int j = lane; j < P; j += 32)
+        chunk_counts[static_cast<size_t>(blockIdx.x) * P + j] = held[j];
+}
+
+// The exclusive scan of `x` over the CTA's kTableThreads threads; `total`
+// gets their sum.  `warp_sum` is kTableWarps ints of shared memory.
+__device__ __forceinline__ int block_exclusive_scan(int x, int* warp_sum, int& total) {
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int incl = static_cast<int>(warp_inclusive_scan(x, lane));
+    if (lane == 31) warp_sum[warp] = incl;
+    __syncthreads();
+    int before = 0;
+    total = 0;
+#pragma unroll
+    for (int q = 0; q < kTableWarps; ++q) {
+        before += q < warp ? warp_sum[q] : 0;
+        total += warp_sum[q];
+    }
+    __syncthreads();
+    return before + incl - x;
+}
+
+// (b) CTA w: first[w] = the sum of counts[0..w); then each chunk's
+// chunk_counts[chunk * P + w] becomes first[w] plus w's claims in the chunks
+// before it.
+__global__ void __launch_bounds__(kTableThreads)
+claim_offsets_kernel(const int* counts, int* chunk_counts, int* first_out, int P,
+                     int chunks) {
+    __shared__ int warp_sum[kTableWarps];
+    const int w = blockIdx.x, tid = threadIdx.x;
+    int part = 0;
+    for (int j = tid; j < w; j += kTableThreads) part += counts[j];
+    int carry;
+    block_exclusive_scan(part, warp_sum, carry);
+    if (tid == 0) first_out[w] = carry;
+    for (int base = 0; base < chunks; base += kTableThreads) {
+        const int c = base + tid;
+        int* at = chunk_counts + static_cast<size_t>(c) * P + w;
+        const int x = c < chunks ? *at : 0;
+        int total;
+        const int before = block_exclusive_scan(x, warp_sum, total);
+        if (c < chunks) *at = carry + before;
+        carry += total;
+    }
+}
+
+// (c) A granted row's start and size to its place in the tables.
+__global__ void __launch_bounds__(kTableThreads)
+claim_tables_kernel(const int* sched, const int* rank, const int* offsets, int* starts,
+                    int* sizes, int P, int S, int chunk) {
+    for (int s = blockIdx.x * kTableThreads + threadIdx.x; s < S;
+         s += gridDim.x * kTableThreads) {
+        const int4 row = reinterpret_cast<const int4*>(sched)[s];
+        if (row.y >= 0) {
+            const int at = offsets[static_cast<size_t>(s / chunk) * P + row.y] + rank[s];
+            starts[at] = row.z;
+            sizes[at] = row.w;
+        }
+    }
+}
+
 // The least chain of a grant that an exact earliest-free walk makes: one
 // warp-wide min (redux.sync), then the owner's compare and select, then the
 // next min.  The value the owner takes is formed beside the min, as the walk
@@ -377,6 +491,33 @@ extern "C" int repro_protocol_launch(
         default: err = launch<0>(s, cs, sc, co, cl, cn, c, S, i_slot, lp_slot, st);
     }
     return static_cast<int>(err);
+}
+
+// After repro_protocol_launch on the same stream: the flat claim tables from
+// its schedule rows `sched` (S, 4) and claim counts `counts` (P,) into `first`
+// (P,), `starts` and `sizes` (S,), of which the first sum(counts) entries are
+// written.  A warp ranks `chunk` rows (a multiple of 32); `scratch` holds
+// S + ceil(S / chunk) * P ints (at least one chunk).
+extern "C" int repro_claim_tables_launch(int device, void* sched, void* counts, void* first,
+                                         void* starts, void* sizes, void* scratch, int P,
+                                         int S, int chunk, void* stream) {
+    if (chunk <= 0 || chunk % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    const DeviceGuard guard(device);
+    if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
+    const auto st = static_cast<cudaStream_t>(stream);
+    const int chunks = std::max(1, (S + chunk - 1) / chunk);
+    const auto* rows = static_cast<const int*>(sched);
+    auto* rank = static_cast<int*>(scratch);
+    int* offsets = rank + S;
+    claim_ranks_kernel<<<chunks, 32, static_cast<size_t>(P) * sizeof(int), st>>>(
+        rows, rank, offsets, P, S, chunk);
+    claim_offsets_kernel<<<P, kTableThreads, 0, st>>>(static_cast<const int*>(counts), offsets,
+                                                      static_cast<int*>(first), P, chunks);
+    const int blocks = std::max(1, std::min((S + kTableThreads - 1) / kTableThreads,
+                                            kTableBlocks));
+    claim_tables_kernel<<<blocks, kTableThreads, 0, st>>>(
+        rows, rank, offsets, static_cast<int*>(starts), static_cast<int*>(sizes), P, S, chunk);
+    return static_cast<int>(cudaGetLastError());
 }
 
 // `steps` must be a multiple of 32; `keys` gets each lane's last key (32 u32).

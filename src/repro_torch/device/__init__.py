@@ -11,7 +11,9 @@ claim loop runs inside a CUDA kernel:
                     ``csrc/chunk_calculus.cuh``).
   persistent.py     the protocol kernel: one launch walks Step 1-3 of the
                     paper against the slab and emits the full
-                    (step, worker, start, size) schedule.
+                    (step, worker, start, size) schedule; behind it the
+                    table kernels build the compute kernels' per-worker
+                    claim tables on the card (``persistent_tables``).
   runtime.py        ``DeviceRuntime`` -- ``OneSidedRuntime`` over a
                     ``DeviceWindow`` (``dls.loop(runtime="device")``).
   executor.py       ``executor="device"``: run the protocol kernel, adopt

@@ -33,12 +33,21 @@ in its registers.
 version (``_claim_loop_plain``, the reference's loop step by step in tensor
 code) for a CPU slab.  Chunk-sequence parity with the host ``plan()`` holds
 index for index.
+
+The persistent compute kernels read per-worker claim tables in one flat
+layout (``ClaimTables``); the self-scheduled entries get them from
+``persistent_tables``.  For a schedule claimed in the same call on the card,
+``launch_claim``'s ``PendingClaim`` builds them behind the protocol kernel
+(``PendingClaim.tables``, the table kernels of ``csrc/protocol.cu``), the
+compute kernel follows on the same stream, and the schedule is read back
+last.  ``DeviceSchedule.tables`` builds them on the host for a schedule
+already read back.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +60,8 @@ from .chunk_calculus import chunk_size_device, gss_constants, host_spec
 
 # technique -> the kernel's code (csrc/chunk_calculus.cuh, enum Technique)
 _TECHNIQUE_CODE = {"static": 0, "ss": 1, "fsc": 1, "gss": 2, "tss": 3, "fac2": 4}
+# schedule rows a warp of the table kernels ranks in order (a multiple of 32)
+_RANK_CHUNK = 1024
 
 
 @dataclasses.dataclass
@@ -90,22 +101,113 @@ class DeviceSchedule:
         """Modeled finish time of the busiest worker."""
         return float(self.clocks.max()) if len(self.clocks) else 0.0
 
+    def tables(self) -> ClaimTables:
+        """The per-worker claim tables, flat and worker-major, as int32 numpy
+        (the layout the card builds behind the protocol kernel): worker w's
+        claims in grant order at ``first[w] .. first[w] + nclaims[w] - 1``."""
+        # a stable sort by worker keeps grant order within each worker
+        order = np.argsort(self.workers, kind="stable")
+        nclaims = np.bincount(self.workers, minlength=self.P).astype(np.int32)
+        first = (np.cumsum(nclaims) - nclaims).astype(np.int32)
+        return ClaimTables(nclaims, first, self.starts[order].astype(np.int32),
+                           self.sizes[order].astype(np.int32))
+
     def worker_lists(self):
-        """Padded per-worker claim tables for the compute kernels.
+        """Padded per-worker claim tables.
 
         Returns ``(nclaims (P,), starts (P, C), sizes (P, C))`` int32 numpy,
         ``C = max(claims per worker, 1)``; padding rows are zero-sized.
         """
-        C = max(int(self.counts.max()) if len(self.counts) else 0, 1)
-        nclaims = np.zeros(self.P, np.int32)
+        nclaims, first, flat_starts, flat_sizes = self.tables()
+        C = max(int(nclaims.max()) if len(nclaims) else 0, 1)
         starts = np.zeros((self.P, C), np.int32)
         sizes = np.zeros((self.P, C), np.int32)
-        for w, st, sz in zip(self.workers, self.starts, self.sizes):
-            c = nclaims[w]
-            starts[w, c] = st
-            sizes[w, c] = sz
-            nclaims[w] = c + 1
+        w = np.repeat(np.arange(self.P), nclaims)
+        slot = np.arange(len(w)) - first[w]
+        starts[w, slot] = flat_starts
+        sizes[w, slot] = flat_sizes
         return nclaims, starts, sizes
+
+
+class ClaimTables(NamedTuple):
+    """Per-worker claim tables, flat and worker-major: worker ``w``'s claims,
+    in grant order, are ``starts[first[w] + c]`` and ``sizes[first[w] + c]``
+    for ``c < nclaims[w]``.  The persistent compute kernels read this one
+    layout.  Built on the card (``PendingClaim.tables``: CUDA tensors,
+    ``starts``/``sizes`` with the protocol's step bound S entries, the first
+    ``nclaims.sum()`` written) or on the host (``DeviceSchedule.tables``:
+    numpy, uploaded by ``on_device``)."""
+
+    nclaims: Any  # (P,) int32
+    first: Any    # (P,) int32, the exclusive prefix of nclaims
+    starts: Any   # (>= nclaims.sum(),) int32
+    sizes: Any
+
+
+class PendingClaim:
+    """A claim loop that has run (CPU) or is enqueued (CUDA), read back later.
+
+    On the card the schedule's copy back into pinned memory is enqueued
+    behind the protocol kernel at once; ``read_back`` waits for that copy
+    alone, so work the caller enqueues in between (the table kernel, a
+    compute kernel) runs while the host slices the schedule.
+    """
+
+    def __init__(self, technique, N, P, chunk, slab, sched, clocks, counts, flat=None):
+        self.technique, self.N, self.P, self.chunk, self.slab = technique, N, P, chunk, slab
+        self._sched, self._counts = sched, counts
+        self._host = (sched, counts, clocks)
+        self._copied = None
+        if flat is not None:  # on the card: the three in one buffer, one copy
+            host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+            host.copy_(flat, non_blocking=True)
+            self._copied = torch.cuda.Event()
+            self._copied.record(torch.cuda.current_stream(flat.device))
+            self._host = _split_outputs(host, int(sched.shape[0]), P)
+
+    def tables(self) -> ClaimTables:
+        """Launch the table kernels on the protocol kernel's stream (CUDA)."""
+        sched, counts = self._sched, self._counts
+        if not sched.is_cuda:
+            raise ValueError("claim tables are built on the card only")
+        S, P = int(sched.shape[0]), self.P
+        chunks = max(1, -(-S // _RANK_CHUNK))
+        # the tables, then scratch: each row's rank, each chunk's offset a worker
+        flat = torch.empty(P + 3 * S + chunks * P, dtype=torch.int32, device=sched.device)
+        tables = ClaimTables(counts, flat[:P], flat[P:P + S], flat[P + S:P + 2 * S])
+        c_int, c_ptr = ctypes.c_int, ctypes.c_void_p
+        fn = _build.function("protocol", "repro_claim_tables_launch", c_int,
+                             *([c_ptr] * 6), c_int, c_int, c_int, c_ptr)
+        err = fn(sched.device.index, _build.ptr(sched), _build.ptr(counts),
+                 _build.ptr(tables.first), _build.ptr(tables.starts), _build.ptr(tables.sizes),
+                 _build.ptr(flat[P + 2 * S:]), P, S, _RANK_CHUNK, _build.stream_of(sched))
+        _build.check(err, "claim tables kernel")
+        _build.LAUNCHES["claim_tables"] += 3  # ranks, offsets, the scatter
+        count("tables_on_card", 1)
+        return tables
+
+    def read_back(self) -> DeviceSchedule:
+        """The schedule; on the card the host waits here for its copy, which
+        follows the protocol kernel."""
+        with span("repro_torch.claim_schedule.readback"):
+            if self._copied is not None:
+                self._copied.synchronize()
+            sched, counts, clocks = (t.numpy() for t in self._host)
+            if self._copied is not None:
+                count("d2h_bytes", sched.nbytes + counts.nbytes + clocks.nbytes)
+        n = int((sched[:, 1] >= 0).sum())  # granted rows form a prefix
+        return DeviceSchedule(
+            technique=self.technique, N=self.N, P=self.P, chunk=self.chunk,
+            steps=sched[:n, 0].copy(), workers=sched[:n, 1].copy(),
+            starts=sched[:n, 2].copy(), sizes=sched[:n, 3].copy(),
+            counts=counts.astype(np.int64), clocks=clocks.copy(), slab=self.slab)
+
+
+def _split_outputs(flat: torch.Tensor, S: int, P: int):
+    """The protocol kernel's (sched (S, 4), counts (P,), clocks (P,)), views
+    of its one int32 output buffer."""
+    return (flat[:4 * S].view(S, 4), flat[4 * S:4 * S + P],
+            flat[4 * S + P:].view(torch.float32))
 
 
 def cost_prefix_sum(costs, N: int) -> np.ndarray:
@@ -160,16 +262,16 @@ def _claim_loop_plain(slab, csum, *, technique, N, P, chunk, max_chunk, S,
 
 def _claim_loop_cuda(slab, csum, *, technique, N, P, chunk, max_chunk, S,
                      i_slot, lp_slot, i_bits):
-    """Launch the protocol kernel; the slab is updated in place."""
+    """Launch the protocol kernel; the slab is updated in place.  Returns
+    sched, clocks, counts and the one buffer they are views of."""
     _build.require_cuda(slab, "slab", torch.int32)
     _build.require_cuda(csum, "csum", torch.float32, (N + 1,))
     if P * 8 > 48 * 1024:
         raise ValueError(f"P={P} workers exceed the kernel's shared memory")
     dev = slab.device
-    sched = torch.empty((S, 4), dtype=torch.int32, device=dev)
+    flat = torch.empty(4 * S + 2 * P, dtype=torch.int32, device=dev)
+    sched, counts, clocks = _split_outputs(flat, S, P)
     cost = torch.empty(S, dtype=torch.float32, device=dev)  # scratch: each step's cost
-    clocks = torch.empty(P, dtype=torch.float32, device=dev)
-    counts = torch.empty(P, dtype=torch.int32, device=dev)
     q_hi, q_lo, n_hi, n_lo = gss_constants(N, P)
     K0, Klast, _S, C = tss_constants(N, P, chunk)
     c_int, c_float, c_ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
@@ -183,7 +285,7 @@ def _claim_loop_cuda(slab, csum, *, technique, N, P, chunk, max_chunk, S,
              _build.stream_of(slab))
     _build.check(err, "protocol kernel")
     _build.LAUNCHES["protocol"] += 1
-    return sched, clocks, counts
+    return sched, clocks, counts, flat
 
 
 def claim_schedule(
@@ -212,40 +314,112 @@ def claim_schedule(
     version.
     """
     with span("repro_torch.claim_schedule"):
-        spec = host_spec(technique, N, P, chunk, max_chunk)
-        S = int(max_steps or max_steps_bound(spec))
-        csum = cost_prefix_sum(costs, N)
-        if slab is None:
-            dev = _build.target_device(device, "claim_schedule")
-            slab = torch.zeros(max(i_slot, lp_slot) + 1, dtype=torch.int32, device=dev)
-        cap = int(slab.shape[0])
-        if not (0 <= i_slot < cap and 0 <= lp_slot < cap and i_slot != lp_slot):
-            raise ValueError(f"bad counter slots ({i_slot}, {lp_slot}) "
-                             f"for slab of capacity {cap}")
-        kw = dict(technique=technique, N=N, P=P, chunk=chunk, max_chunk=max_chunk,
-                  S=S, i_slot=i_slot, lp_slot=lp_slot,
-                  # i < 2*S here (resumed loops start past 0), so the GSS
-                  # double-float power walks only that many bits
-                  i_bits=(2 * S).bit_length())
-        on_card = slab.device.type != "cpu"
-        if on_card:
-            count("h2d_bytes", csum.nbytes)
-            sched, clocks, counts = _claim_loop_cuda(
-                slab, torch.from_numpy(csum).to(slab.device), **kw)
-        else:
-            sched, clocks, counts = _claim_loop_plain(slab, torch.from_numpy(csum), **kw)
+        return launch_claim(
+            technique, N, P, chunk=chunk, max_chunk=max_chunk, costs=costs, slab=slab,
+            i_slot=i_slot, lp_slot=lp_slot, max_steps=max_steps, device=device).read_back()
 
-        # the host waits here for the protocol kernel
-        with span("repro_torch.claim_schedule.readback"):
-            sched, counts, clocks = (t.cpu().numpy() for t in (sched, counts, clocks))
-            if on_card:
-                count("d2h_bytes", sched.nbytes + counts.nbytes + clocks.nbytes)
-        n = int((sched[:, 1] >= 0).sum())  # granted rows form a prefix
-        return DeviceSchedule(
-            technique=technique, N=N, P=P, chunk=chunk,
-            steps=sched[:n, 0].copy(), workers=sched[:n, 1].copy(),
-            starts=sched[:n, 2].copy(), sizes=sched[:n, 3].copy(),
-            counts=counts.astype(np.int64), clocks=clocks, slab=slab)
+
+def launch_claim(
+    technique: str,
+    N: int,
+    P: int,
+    *,
+    chunk: int = 1,
+    max_chunk: Optional[int] = None,
+    costs=None,
+    slab: Optional[torch.Tensor] = None,
+    i_slot: int = 0,
+    lp_slot: int = 1,
+    max_steps: Optional[int] = None,
+    device=None,
+) -> PendingClaim:
+    """``claim_schedule``'s claim loop, not yet read back (same arguments).
+
+    On the card the protocol kernel and the schedule's copy back are
+    enqueued and this returns at once; the caller may enqueue the table
+    kernel and a compute kernel behind them before ``read_back``.  On the
+    CPU the plain version has run.  Opens no span: ``claim_schedule`` and
+    the entries wrap it in ``repro_torch.claim_schedule``.
+    """
+    spec = host_spec(technique, N, P, chunk, max_chunk)
+    S = int(max_steps or max_steps_bound(spec))
+    csum = cost_prefix_sum(costs, N)
+    if slab is None:
+        dev = _build.target_device(device, "claim_schedule")
+        slab = torch.zeros(max(i_slot, lp_slot) + 1, dtype=torch.int32, device=dev)
+    cap = int(slab.shape[0])
+    if not (0 <= i_slot < cap and 0 <= lp_slot < cap and i_slot != lp_slot):
+        raise ValueError(f"bad counter slots ({i_slot}, {lp_slot}) "
+                         f"for slab of capacity {cap}")
+    kw = dict(technique=technique, N=N, P=P, chunk=chunk, max_chunk=max_chunk,
+              S=S, i_slot=i_slot, lp_slot=lp_slot,
+              # i < 2*S here (resumed loops start past 0), so the GSS
+              # double-float power walks only that many bits
+              i_bits=(2 * S).bit_length())
+    if slab.device.type == "cpu":
+        return PendingClaim(technique, N, P, chunk, slab,
+                            *_claim_loop_plain(slab, torch.from_numpy(csum), **kw))
+    count("h2d_bytes", csum.nbytes)
+    return PendingClaim(technique, N, P, chunk, slab,
+                        *_claim_loop_cuda(slab, torch.from_numpy(csum).to(slab.device), **kw))
+
+
+def persistent_tables(technique: str, N: int, P: int, *, chunk: int = 1, costs=None,
+                      schedule: Optional[DeviceSchedule] = None,
+                      device: torch.device,
+                      what: str = "tile space") -> Tuple[ClaimTables, Callable[[], DeviceSchedule]]:
+    """The claim tables a persistent compute kernel over ``N`` iterations and
+    ``P`` workers reads, and ``finish()``, which returns the schedule.
+
+    A schedule this call claims on the card: the protocol kernel, its copy
+    back and the table kernels are enqueued on one stream, and the tables
+    stay on the card; the caller launches its compute kernel behind them,
+    then calls ``finish()``, which waits for the copy alone, reads the
+    schedule back and checks that it covers ``[0, N)``.  Otherwise (a
+    ``schedule`` passed in, or a CPU ``device``) the schedule is claimed
+    and checked first and its tables are built on the host
+    (``DeviceSchedule.tables``).  ``what`` names the tiles in errors.
+    """
+    if schedule is None and device.type != "cpu":
+        with span("repro_torch.claim_schedule"):
+            claim = launch_claim(technique, N, P, chunk=chunk, costs=costs, device=device)
+        with span("repro_torch.worker_lists"):
+            tables = claim.tables()
+
+        def finish() -> DeviceSchedule:
+            schedule = claim.read_back()
+            _check_cover(schedule, N, what)
+            return schedule
+        return tables, finish
+    if schedule is None:
+        schedule = claim_schedule(technique, N, P, chunk=chunk, costs=costs, device=device)
+    if schedule.N != N or schedule.P != P:
+        raise ValueError(f"schedule is for (N={schedule.N}, P={schedule.P}), "
+                         f"this {what} needs (N={N}, P={P})")
+    _check_cover(schedule, N, what)
+    with span("repro_torch.worker_lists"):
+        tables = schedule.tables()
+    return tables, lambda: schedule
+
+
+def _check_cover(schedule: DeviceSchedule, N: int, what: str) -> None:
+    if int(schedule.sizes.sum()) != N:
+        raise ValueError(f"schedule does not cover the {what} "
+                         f"({int(schedule.sizes.sum())} of {N} tiles)")
+
+
+def on_device(arrays, device) -> list:
+    """``arrays`` as tensors on ``device``: numpy arrays are uploaded (not
+    waiting for the stream's kernels), in span ``repro_torch.tables_upload``
+    with their bytes counted; tensors are passed through."""
+    host = [a for a in arrays if not torch.is_tensor(a)]
+    if not host:
+        return list(arrays)
+    with span("repro_torch.tables_upload"):
+        count("h2d_bytes", sum(np.asarray(a).nbytes for a in host))
+        return [a if torch.is_tensor(a)
+                else torch.from_numpy(np.ascontiguousarray(a)).to(device, non_blocking=True)
+                for a in arrays]
 
 
 def schedule_timeline(schedule: DeviceSchedule, costs=None):

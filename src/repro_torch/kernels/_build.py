@@ -53,6 +53,7 @@ NVCC_FLAGS = (
 LAUNCHES: Dict[str, int] = {
     "window_fetch_add": 0,
     "protocol": 0,
+    "claim_tables": 0,
     "mandelbrot_static": 0,
     "mandelbrot_persistent": 0,
     "spin_image": 0,

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.spans import count, span
+from repro_torch.spans import span
 
 from .kernel import DTYPE_CODE, check_kernel_inputs
 from .ops import placed, refuse_grad
@@ -47,14 +47,15 @@ def varlen_tile_costs(lengths, H: int, nq: int, blk_q: int, blk_k: int,
     return costs
 
 
-def _claimed_tiles(nclaims, starts, sizes) -> np.ndarray:
+def _claimed_tiles(nclaims, first, starts, sizes) -> np.ndarray:
     """Every tile of the claim tables, worker by worker, in table order."""
     tiles = [np.arange(st, st + sz) for w in range(len(nclaims))
-             for st, sz in zip(starts[w, :nclaims[w]], sizes[w, :nclaims[w]])]
+             for st, sz in zip(starts[first[w]:first[w] + nclaims[w]],
+                               sizes[first[w]:first[w] + nclaims[w]])]
     return np.concatenate(tiles)
 
 
-def _persistent_plain(nclaims, starts, sizes, q, k, v, lengths, *, causal,
+def _persistent_plain(nclaims, first, starts, sizes, q, k, v, lengths, *, causal,
                       scale, blk_q, blk_k):
     """The plain version: the claimed tiles' online softmax, kv block by kv
     block, each tile stopping at its own trip count.
@@ -78,7 +79,7 @@ def _persistent_plain(nclaims, starts, sizes, q, k, v, lengths, *, causal,
     kp = kp.reshape(B * Hkv, nk, blk_k, D)
     vp = vp.reshape(B * Hkv, nk, blk_k, D)
 
-    tile = torch.as_tensor(_claimed_tiles(nclaims, starts, sizes), device=dev).long()
+    tile = torch.as_tensor(_claimed_tiles(nclaims, first, starts, sizes), device=dev).long()
     bh = tile // nq
     qi = tile - bh * nq
     b = bh // H
@@ -112,30 +113,30 @@ def _persistent_plain(nclaims, starts, sizes, q, k, v, lengths, *, causal,
     return out.reshape(B, H, nq * blk_q, D)[:, :, :Tq]
 
 
-def _persistent_cuda(nclaims, starts, sizes, q, k, v, lengths, *, causal,
+def _persistent_cuda(nclaims, first, starts, sizes, q, k, v, lengths, *, causal,
                      scale, blk_q, blk_k):
-    """Launch ``workers`` persistent CTAs over their claim tables."""
+    """Launch ``workers`` persistent CTAs over their claim tables
+    (``device.persistent.ClaimTables``: built on the card, or numpy and
+    uploaded here, with ``lengths``)."""
+    from repro_torch.device.persistent import on_device
+
     B, H, Hkv, Tq, Tk, D = check_kernel_inputs(
         q, k, v, blk_q, blk_k, "flash_attention_persistent")
-    W, C = starts.shape
     dev = q.device
-    with span("repro_torch.tables_upload"):
-        arrays = (nclaims, starts, sizes, lengths)
-        tables = [torch.as_tensor(a, device=dev) for a in arrays]
-        count("h2d_bytes", sum(a.nbytes for a in arrays))
-    for name, t, shape in zip(("nclaims", "starts", "sizes", "lengths"), tables,
-                              ((W,), (W, C), (W, C), (B,))):
+    tables = on_device((nclaims, first, starts, sizes, lengths), dev)
+    W, S = len(nclaims), tuple(tables[2].shape)
+    for name, t, shape in zip(("nclaims", "first", "starts", "sizes", "lengths"), tables,
+                              ((W,), (W,), S, S, (B,))):
         _build.require_cuda(t, name, torch.int32, shape)
     out = torch.empty_like(q)
     c_int, c_float, c_ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
     fn = _build.function("flash_attention", "repro_flash_attention_persistent",
-                         c_int, c_int, *([c_ptr] * 3), c_int, c_int,
+                         c_int, c_int, *([c_ptr] * 4), c_int,
                          *([c_ptr] * 5), *([c_int] * 10), c_float, c_ptr)
-    err = fn(dev.index, DTYPE_CODE[q.dtype], *(_build.ptr(t) for t in tables[:3]),
-             W, C, _build.ptr(q), _build.ptr(k), _build.ptr(v),
-             _build.ptr(tables[3]), _build.ptr(out), B, H, Hkv, Tq, Tk, D,
-             -(-Tq // blk_q), blk_q, blk_k, int(causal), float(scale),
-             _build.stream_of(q))
+    err = fn(dev.index, DTYPE_CODE[q.dtype], *(_build.ptr(t) for t in tables[:4]), W,
+             _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(tables[4]),
+             _build.ptr(out), B, H, Hkv, Tq, Tk, D, -(-Tq // blk_q), blk_q, blk_k,
+             int(causal), float(scale), _build.stream_of(q))
     _build.check(err, "flash attention persistent kernel")
     _build.LAUNCHES["flash_attention_persistent"] += 1
     return out
@@ -167,7 +168,7 @@ def flash_attention_persistent(
     else ``"cuda"``): the protocol and persistent kernels on CUDA, their
     plain versions on the CPU.  Not differentiable (``ops.refuse_grad``).
     """
-    from repro_torch.device.persistent import claim_schedule
+    from repro_torch.device.persistent import persistent_tables
 
     with span("repro_torch.flash_attention_persistent"):
         refuse_grad((q, k, v), "flash_attention_persistent")
@@ -188,22 +189,12 @@ def flash_attention_persistent(
             raise ValueError(f"lengths must lie in [0, Tk={Tk}], got {lengths.tolist()}")
 
         N = B * H * nq
-        if schedule is None:
-            if costs is None:
-                with span("repro_torch.varlen_tile_costs"):
-                    costs = varlen_tile_costs(lengths, H, nq, blk_q, blk_k, causal)
-            schedule = claim_schedule(technique, N, workers, chunk=chunk,
-                                      costs=costs, device=q.device)
-        if schedule.N != N or schedule.P != workers:
-            raise ValueError(
-                f"schedule is for (N={schedule.N}, P={schedule.P}), "
-                f"this tile space needs (N={N}, P={workers})")
-        if int(schedule.sizes.sum()) != N:
-            raise ValueError("schedule does not cover the tile space "
-                             f"({int(schedule.sizes.sum())} of {N} tiles)")
-        with span("repro_torch.worker_lists"):
-            nclaims, starts, sizes = schedule.worker_lists()
+        if schedule is None and costs is None:
+            with span("repro_torch.varlen_tile_costs"):
+                costs = varlen_tile_costs(lengths, H, nq, blk_q, blk_k, causal)
+        tables, finish = persistent_tables(technique, N, workers, chunk=chunk, costs=costs,
+                                           schedule=schedule, device=q.device)
         run = _persistent_plain if q.device.type == "cpu" else _persistent_cuda
-        out = run(nclaims, starts, sizes, q, k, v, lengths, causal=causal,
-                  scale=scale, blk_q=blk_q, blk_k=blk_k)
-    return out, schedule
+        out = run(*tables, q, k, v, lengths, causal=causal, scale=scale, blk_q=blk_q,
+                  blk_k=blk_k)
+        return out, finish()

@@ -4,9 +4,11 @@ Port of ``repro.kernels.mandelbrot.persistent``.  The static entry point
 (``ops.mandelbrot``) launches a thread per pixel.  This variant launches
 ``workers`` persistent CTAs and lets the device-window protocol
 (``repro_torch.device``) decide which tiles each one executes: the claim
-loop runs in the protocol kernel, producing per-worker claim tables
-(variable-sized chunks of the linearized tile space); each CTA then walks
-its own table and writes its tiles into the shared counts image.
+loop runs in the protocol kernel, and the table kernels behind it build
+per-worker claim tables (variable-sized chunks of the linearized tile
+space) on the card; each CTA then walks its own table and writes its tiles
+into the shared counts image.  A schedule passed in is tabled on the host
+(``DeviceSchedule.tables``) and uploaded.
 
 Pixel math is the one ``z4c_step`` iteration the static kernel runs too,
 so the two paths are exactly equal.  The persistent body tests for an
@@ -21,7 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.spans import count, span
+from repro_torch.spans import span
 
 from .ref import escape_counts, geometry
 
@@ -37,11 +39,12 @@ def _tile_pixels(tiles: torch.Tensor, gw: int, block_h: int, block_w: int):
     return rows.reshape(-1), cols.reshape(-1)
 
 
-def _persistent_plain(nclaims, starts, sizes, *, width, height, ct, xlim, ylim,
+def _persistent_plain(nclaims, first, starts, sizes, *, width, height, ct, xlim, ylim,
                       block_h, block_w, gw, device):
     """The plain version: every worker's claimed tiles, in table order."""
     tiles = [np.arange(st, st + sz) for w in range(len(nclaims))
-             for st, sz in zip(starts[w, :nclaims[w]], sizes[w, :nclaims[w]])]
+             for st, sz in zip(starts[first[w]:first[w] + nclaims[w]],
+                               sizes[first[w]:first[w] + nclaims[w]])]
     tiles = torch.as_tensor(np.concatenate(tiles).astype(np.int32), device=device)
     rows, cols = _tile_pixels(tiles, gw, block_h, block_w)
     inside = (rows < height) & (cols < width)
@@ -53,27 +56,25 @@ def _persistent_plain(nclaims, starts, sizes, *, width, height, ct, xlim, ylim,
     return out
 
 
-def _persistent_cuda(nclaims, starts, sizes, *, width, height, ct, xlim, ylim,
+def _persistent_cuda(nclaims, first, starts, sizes, *, width, height, ct, xlim, ylim,
                      block_h, block_w, gw, device):
-    """Launch ``workers`` persistent CTAs over their claim tables."""
-    W, C = starts.shape
-    with span("repro_torch.tables_upload"):
-        nclaims_t = torch.as_tensor(nclaims, device=device)
-        starts_t = torch.as_tensor(starts, device=device)
-        sizes_t = torch.as_tensor(sizes, device=device)
-        count("h2d_bytes", nclaims.nbytes + starts.nbytes + sizes.nbytes)
-    for name, t, shape in (("nclaims", nclaims_t, (W,)), ("starts", starts_t, (W, C)),
-                           ("sizes", sizes_t, (W, C))):
+    """Launch ``workers`` persistent CTAs over their claim tables
+    (``device.persistent.ClaimTables``: built on the card, or numpy and
+    uploaded here)."""
+    from repro_torch.device.persistent import on_device
+
+    tables = on_device((nclaims, first, starts, sizes), device)
+    W, S = len(nclaims), tuple(tables[2].shape)
+    for name, t, shape in zip(("nclaims", "first", "starts", "sizes"), tables,
+                              ((W,), (W,), S, S)):
         _build.require_cuda(t, name, torch.int32, shape)
     out = torch.empty((height, width), dtype=torch.int32, device=device)
     xmin, dx, ymin, dy = geometry(width, height, xlim, ylim)
     c_int, c_float, c_ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
     fn = _build.function("mandelbrot", "repro_mandelbrot_persistent", c_int,
-                         c_ptr, c_ptr, c_ptr, c_ptr, *([c_int] * 8),
-                         *([c_float] * 4), c_ptr)
-    err = fn(out.device.index, _build.ptr(out), _build.ptr(nclaims_t),
-             _build.ptr(starts_t), _build.ptr(sizes_t), W, C, gw, block_h,
-             block_w, width, height, ct, xmin, dx, ymin, dy,
+                         *([c_ptr] * 5), *([c_int] * 7), *([c_float] * 4), c_ptr)
+    err = fn(out.device.index, _build.ptr(out), *(_build.ptr(t) for t in tables), W, gw,
+             block_h, block_w, width, height, ct, xmin, dx, ymin, dy,
              _build.stream_of(out))
     _build.check(err, "mandelbrot persistent kernel")
     _build.LAUNCHES["mandelbrot_persistent"] += 1
@@ -105,7 +106,7 @@ def mandelbrot_persistent(
     assignment.  Runs on ``device`` (default ``"cuda"``): the protocol and
     persistent kernels on CUDA, their plain versions on the CPU.
     """
-    from repro_torch.device.persistent import claim_schedule
+    from repro_torch.device.persistent import persistent_tables
 
     with span("repro_torch.mandelbrot_persistent"):
         height = width if height is None else height
@@ -114,23 +115,12 @@ def mandelbrot_persistent(
         gw = -(-width // block_w)
         N = gh * gw
 
-        if schedule is None:
-            schedule = claim_schedule(technique, N, workers, chunk=chunk,
-                                      costs=costs, device=device)
-        if schedule.N != N or schedule.P != workers:
-            raise ValueError(
-                f"schedule is for (N={schedule.N}, P={schedule.P}), "
-                f"this grid needs (N={N}, P={workers})")
-        if int(schedule.sizes.sum()) != N:
-            raise ValueError("schedule does not cover the tile grid "
-                             f"({int(schedule.sizes.sum())} of {N} tiles)")
-        with span("repro_torch.worker_lists"):
-            nclaims, starts, sizes = schedule.worker_lists()
+        tables, finish = persistent_tables(technique, N, workers, chunk=chunk, costs=costs,
+                                           schedule=schedule, device=device, what="tile grid")
         run = _persistent_plain if device.type == "cpu" else _persistent_cuda
-        out = run(nclaims, starts, sizes, width=width, height=height, ct=ct,
-                  xlim=xlim, ylim=ylim, block_h=block_h, block_w=block_w, gw=gw,
-                  device=device)
-    return out, schedule
+        out = run(*tables, width=width, height=height, ct=ct, xlim=xlim, ylim=ylim,
+                  block_h=block_h, block_w=block_w, gw=gw, device=device)
+        return out, finish()
 
 
 def mandelbrot_tile_costs(counts, block_h: int = 128, block_w: int = 128):

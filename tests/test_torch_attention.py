@@ -285,7 +285,7 @@ def test_persistent_kernel_matches_plain(causal):
     for technique in ("gss", "fac2", "ss"):
         out, sched = tk.flash_attention_persistent(
             q, k, v, lengths=lengths, causal=causal, technique=technique, workers=7)
-        plain = _persistent_plain(*sched.worker_lists(), q, k, v, lengths,
+        plain = _persistent_plain(*sched.tables(), q, k, v, lengths,
                                   causal=causal, scale=D ** -0.5, blk_q=128, blk_k=128)
         torch.testing.assert_close(out, plain, atol=1e-5, rtol=0)
     full, _ = tk.flash_attention_persistent(q, k, v, causal=causal, workers=7)
@@ -375,7 +375,7 @@ def test_persistent_kernel_bf16_matches_plain(causal, blk_q, D):
     for technique in ("gss", "fac2", "ss"):
         out, sched = tk.flash_attention_persistent(
             q, k, v, lengths=lengths, causal=causal, technique=technique, workers=7, **blocks)
-        _bf16_close(out, _persistent_plain(*sched.worker_lists(), q, k, v, lengths,
+        _bf16_close(out, _persistent_plain(*sched.tables(), q, k, v, lengths,
                                            causal=causal, scale=D ** -0.5, **blocks))
     full, _ = tk.flash_attention_persistent(q, k, v, causal=causal, workers=7, **blocks)
     _bf16_close(full, tk.flash_attention(q, k, v, causal=causal, **blocks))

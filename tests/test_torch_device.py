@@ -286,12 +286,16 @@ def test_plain_claim_schedule_resumes_like_reference(jdev, technique, i0, lp0):
 # l*R .. l*R+R-1; a grant goes to the lowest lane holding the least key, its
 # least slot first: the owner's new least against the least of the other
 # lanes; above 8 clocks a lane one min over all lanes a grant, and the warp
-# rescans the owner's block)
+# rescans the owner's block); and the claim tables after the walk (a warp
+# ranks each chunk of 1024 rows in order, 32 at a time; each worker's chunk
+# counts are scanned over the chunks from first[worker]; each granted row is
+# scattered to its chunk's offset plus its rank)
 # ---------------------------------------------------------------------------
 
 _NO_WORKER = np.uint32(0xFFFFFFFF)
 _THREADS = 512    # the kernel's kThreads: prologue steps per block
 _REG_CLOCKS = 8   # its kMaxRegClocks: clocks a lane keeps in registers
+_RANK_CHUNK = tdev.persistent._RANK_CHUNK  # rows a warp of the table kernels ranks
 
 
 def _clock_key(v):
@@ -359,6 +363,52 @@ def _kernel_model(slab, csum, *, technique, N, P, chunk, max_chunk, S, i_slot,
     return sched, clk.reshape(-1)[:P], cnt.reshape(-1)[:P], new
 
 
+def _tables_model(sched, counts):
+    """The claim tables' three kernels: (first, starts, sizes); every table
+    entry is written once (-1 where nothing is)."""
+    P, S = len(counts), len(sched)
+    chunks = max(1, -(-S // _RANK_CHUNK))
+    rank = np.full(S, -1, np.int64)
+    offsets = np.zeros((chunks, P), np.int64)
+    for c in range(chunks):                                  # a. ranks
+        held = np.zeros(P, np.int64)
+        for base in range(c * _RANK_CHUNK, min((c + 1) * _RANK_CHUNK, S), 32):
+            w = sched[base:base + 32, 1]
+            if not (w >= 0).any():
+                break
+            for lane in np.flatnonzero(w >= 0):
+                rank[base + lane] = held[w[lane]] + (w[:lane] == w[lane]).sum()
+            for v in np.unique(w[w >= 0]):
+                held[v] += (w == v).sum()
+        offsets[c] = held
+    first = np.cumsum(counts.astype(np.int64)) - counts       # b. offsets
+    offsets = first + np.cumsum(offsets, axis=0) - offsets
+    starts = np.full(S, -1, np.int32)                       # c. the scatter
+    sizes = np.full(S, -1, np.int32)
+    for s in np.flatnonzero(sched[:, 1] >= 0):
+        at = offsets[s // _RANK_CHUNK, sched[s, 1]] + rank[s]
+        assert sizes[at] == -1, f"row {s} lands on a written entry {at}"
+        starts[at], sizes[at] = sched[s, 2], sched[s, 3]
+    return first, starts, sizes
+
+
+def _assert_tables_equal(first, count, starts, sizes, schedule):
+    """Flat worker-major tables against ``schedule.worker_lists()``, worker
+    by worker, ``first`` the exclusive prefix of the counts, and the written
+    entries equal to the host's flat ``schedule.tables()``."""
+    nclaims, w_starts, w_sizes = schedule.worker_lists()
+    count, first = np.asarray(count), np.asarray(first)
+    assert np.array_equal(count, nclaims), "count"
+    assert np.array_equal(first, np.cumsum(nclaims) - nclaims), "first"
+    for w in range(schedule.P):
+        at, n = int(first[w]), int(nclaims[w])
+        assert np.array_equal(starts[at:at + n], w_starts[w, :n]), f"worker {w} starts"
+        assert np.array_equal(sizes[at:at + n], w_sizes[w, :n]), f"worker {w} sizes"
+    host, n = schedule.tables(), int(nclaims.sum())
+    for got, want in zip((count, first, starts[:n], sizes[:n]), host):
+        assert np.array_equal(got, want), "host tables"
+
+
 def _model_vs_plain(technique, N, P, costs=None, slab=(0, 0), chunk=1,
                     max_chunk=None, max_steps=None):
     spec = tdev.host_spec(technique, N, P, chunk, max_chunk)
@@ -406,6 +456,51 @@ def test_kernel_model_resumed_slabs(technique, slab):
         lp0 = int(starts[i0])
     n = _model_vs_plain(technique, N, P, _costs("random", N), slab=(i0, lp0))
     assert (n == 0) == (lp0 >= N)
+
+
+@pytest.mark.parametrize("technique", tdev.DEVICE_SPEC_TECHNIQUES)
+@pytest.mark.parametrize("P", [1, 3, 132, 300])
+@pytest.mark.parametrize("kind", ["uniform", "random"])
+@pytest.mark.parametrize("slab", [(0, 0), (5, 2500), (9, 3000), (4, None)])
+def test_kernel_model_tables_equal_worker_lists(technique, P, kind, slab):
+    """The table kernels, mirrored after the mirrored walk, give the plain
+    loop's ``worker_lists()`` row by row: fresh and resumed slabs, lp0 == N
+    and lp0 > N (empty tables); uniform costs make every grant a tie; P 300
+    is the walk in shared memory; ss at N = 2500 ranks three chunks."""
+    N = 2500
+    costs = _costs(kind, N, seed=P)
+    i0, lp0 = slab
+    if lp0 is None:
+        sizes, starts = plan(tdev.host_spec(technique, N, P))
+        i0 = min(i0, len(starts) - 1)
+        lp0 = int(starts[i0])
+    S = int(max_steps_bound(tdev.host_spec(technique, N, P)))
+    kw = dict(technique=technique, N=N, P=P, chunk=1, max_chunk=None, S=S, i_slot=0,
+              lp_slot=1, i_bits=(2 * S).bit_length())
+    csum = torch.from_numpy(tdev.persistent.cost_prefix_sum(costs, N))
+    sched, _, counts, _ = _kernel_model(torch.tensor([i0, lp0], dtype=torch.int32), csum, **kw)
+    first, starts, sizes = _tables_model(sched, counts)
+    plain = tdev.claim_schedule(technique, N, P, costs=costs, device="cpu",
+                                slab=torch.tensor([i0, lp0], dtype=torch.int32))
+    _assert_tables_equal(first, counts, starts, sizes, plain)
+    assert (plain.n_steps == 0) == (lp0 >= N)
+    assert (sizes >= 0).sum() == plain.n_steps
+
+
+def test_worker_lists_equal_the_grant_loop():
+    """The numpy tables against the loop they replace, on a schedule whose
+    workers interleave and one that leaves workers idle."""
+    for technique, N, P in (("fac2", 777, 13), ("static", 5, 9), ("gss", 300, 1)):
+        sched = tdev.claim_schedule(technique, N, P, costs=_costs("random", N), device="cpu")
+        C = max(int(sched.counts.max()), 1)
+        nclaims = np.zeros(P, np.int32)
+        starts = np.zeros((P, C), np.int32)
+        sizes = np.zeros((P, C), np.int32)
+        for w, st, sz in zip(sched.workers, sched.starts, sched.sizes):
+            starts[w, nclaims[w]], sizes[w, nclaims[w]] = st, sz
+            nclaims[w] += 1
+        for got, want in zip(sched.worker_lists(), (nclaims, starts, sizes)):
+            assert got.dtype == want.dtype and np.array_equal(got, want)
 
 
 def test_clock_key_orders_like_floats():
@@ -514,8 +609,59 @@ def test_protocol_kernel_resumed_slabs(technique, P, slab):
     assert (k.n_steps == 0) == (lp0 >= N)
 
 
+def _card_tables_equal(technique, N, P, costs=None, slab=None, **kw):
+    """The tables the card builds behind the protocol kernel, read back,
+    against ``worker_lists()`` of the schedule read back with them; the
+    tables' memory is poisoned after, so that a later launch cannot find
+    right entries it did not write."""
+    s = None if slab is None else torch.tensor(slab, dtype=torch.int32, device="cuda")
+    claim = tdev.persistent.launch_claim(technique, N, P, costs=costs, slab=s,
+                                         device="cuda", **kw)
+    t = claim.tables()
+    sched = claim.read_back()
+    count, first, starts, sizes = (x.cpu().numpy() for x in t)
+    for x in (t.first, t.starts, t.sizes):
+        x.fill_(-1)
+    _assert_tables_equal(first, count, starts, sizes, sched)
+    return sched
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("technique", tdev.DEVICE_SPEC_TECHNIQUES)
+@pytest.mark.parametrize("P", [132, 300])
+@pytest.mark.parametrize("kind", ["uniform", "random"])
+def test_claim_tables_equal_worker_lists(technique, P, kind):
+    """N = 4096; P 300 is the walk in shared memory; uniform costs make
+    every grant a tie.  The schedule read back equals the plain version's."""
+    require_card()
+    costs = _costs(kind, 4096, seed=P)
+    k = _card_tables_equal(technique, 4096, P, costs)
+    p = tdev.claim_schedule(technique, 4096, P, costs=costs, device="cpu")
+    for f in _FIELDS:
+        assert np.array_equal(getattr(k, f), getattr(p, f)), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("technique", tdev.DEVICE_SPEC_TECHNIQUES)
+@pytest.mark.parametrize("slab", [(40, None), (5, 4096), (9, 5000)])
+def test_claim_tables_resumed_slabs(technique, slab):
+    """Mid-loop, and lp0 == N or past it (no grant: empty tables)."""
+    require_card()
+    N, P = 4096, 132
+    i0, lp0 = slab
+    if lp0 is None:
+        sizes, starts = plan(tdev.host_spec(technique, N, P))
+        i0 = min(i0, len(starts) - 1)
+        lp0 = int(starts[i0])
+    k = _card_tables_equal(technique, N, P, _costs("random", N), slab=[7, lp0, -2, i0, 11],
+                           i_slot=3, lp_slot=1)
+    assert (k.n_steps == 0) == (lp0 >= N)
+
+
 # one line of csrc/protocol.cu changed: ties to the highest lane, an inclusive
-# scan for the starts, the window's write-back dropped
+# scan for the starts, the window's write-back dropped; and a worker's slot not
+# advanced past a warp's 32 rows when the tables are ranked, which leaves the
+# schedule as it is and spoils the tables alone
 PROTOCOL_PLANTED = {
     "ties_to_highest": (
         "const unsigned below = (1u << lane) - 1u;",
@@ -527,7 +673,20 @@ PROTOCOL_PLANTED = {
         "const int2 old = make_int2(atomicAdd(slab + i_slot, n), "
         "atomicAdd(slab + lp_slot, static_cast<int>(lp_end - lp0)));",
         "const int2 old = make_int2(i0, static_cast<int>(lp0));"),
+    "slot_not_advanced": (
+        "if ((group & lower) == 0) held[w] = before + __popc(group);",
+        "if ((group & lower) == 0) held[w] = before;"),
 }
+TABLE_FAULTS = ("slot_not_advanced",)
+
+
+def test_planted_protocol_lines_are_unique():
+    """Each planted fault replaces one line that the source holds once."""
+    from repro_torch.kernels import _build
+
+    src = (_build.CSRC / "protocol.cu").read_text()
+    for fault, (old, new) in PROTOCOL_PLANTED.items():
+        assert src.count(old) == 1 and old != new, fault
 
 
 @pytest.fixture(scope="module")
@@ -560,7 +719,7 @@ def planted_protocol(tmp_path_factory):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("fault", list(PROTOCOL_PLANTED))
+@pytest.mark.parametrize("fault", [f for f in PROTOCOL_PLANTED if f not in TABLE_FAULTS])
 def test_protocol_kernel_fails_planted_faults(planted_protocol, fault, monkeypatch):
     """The sound kernel equals the plain version over gss at N = 4096,
     P = 132 with uniform costs (every grant a tie); each planted fault
@@ -576,6 +735,29 @@ def test_protocol_kernel_fails_planted_faults(planted_protocol, fault, monkeypat
     try:
         with pytest.raises(AssertionError):
             _kernel_equals_plain("gss", 4096, 132)
+    finally:
+        monkeypatch.undo()
+        _build.function.cache_clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", TABLE_FAULTS)
+def test_claim_tables_fail_planted_faults(planted_protocol, fault, monkeypatch):
+    """The sound library's tables equal ``worker_lists()`` over gss at
+    N = 4096, P = 132, uniform costs; the planted fault's schedule still
+    equals the plain version's, and its tables do not."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    _card_tables_equal("gss", 4096, 132)
+    monkeypatch.setattr(_build, "library",
+                        lambda name: ctypes.CDLL(str(planted_protocol[fault])))
+    _build.function.cache_clear()
+    try:
+        _kernel_equals_plain("gss", 4096, 132)
+        with pytest.raises(AssertionError):
+            _card_tables_equal("gss", 4096, 132)
     finally:
         monkeypatch.undo()
         _build.function.cache_clear()

@@ -87,7 +87,7 @@ def test_mandelbrot_persistent_rejects_foreign_schedule():
 THREADS, PATCH_H, PATCH_W = 1024, 4, 8
 
 
-def _persistent_pixels(nclaims, starts, sizes, *, gw, bh, bw, width, height):
+def _persistent_pixels(nclaims, first, starts, sizes, *, gw, bh, bw, width, height):
     """Mirror of the persistent kernel's pixel assignment: one row
     (worker, thread, step, row, col) per pixel the kernel writes.  Tiles in
     claim-table order; in a tile padded to whole patches, index p goes to
@@ -103,7 +103,8 @@ def _persistent_pixels(nclaims, starts, sizes, *, gw, bh, bw, width, height):
     out = []
     for w in range(len(nclaims)):
         done = np.zeros(THREADS, np.int64)  # steps each thread has taken
-        for st, sz in zip(starts[w, :nclaims[w]], sizes[w, :nclaims[w]]):
+        at = slice(first[w], first[w] + nclaims[w])
+        for st, sz in zip(starts[at], sizes[at]):
             for tile in range(st, st + sz):
                 ti, tj = divmod(tile, gw)
                 row, col = ti * bh + r, tj * bw + x
@@ -127,8 +128,8 @@ def test_persistent_body_covers_each_pixel_once(bh, bw, workers):
     width, height = 1000, 700
     gw, gh = -(-width // bw), -(-height // bh)
     sched = claim_schedule("gss", gw * gh, workers, device="cpu")
-    nclaims, starts, sizes = sched.worker_lists()
-    px = _persistent_pixels(nclaims, starts, sizes, gw=gw, bh=bh, bw=bw,
+    nclaims, first, starts, sizes = sched.tables()
+    px = _persistent_pixels(nclaims, first, starts, sizes, gw=gw, bh=bh, bw=bw,
                             width=width, height=height)
     hits = np.zeros((height, width), np.int64)
     np.add.at(hits, (px[:, 3], px[:, 4]), 1)

@@ -37,15 +37,16 @@ from _torch_support import require_card
 
 ROOT = Path(__file__).resolve().parents[1]
 HEAD = """__global__ void __launch_bounds__(1024)
-mandelbrot_persistent_kernel(int* out, const int* nclaims, const int* starts,
-                             const int* sizes, int C, int gw, int block_h, int block_w,
-                             MandelGeom g) {
+mandelbrot_persistent_kernel(int* out, const int* nclaims, const int* first,
+                             const int* starts, const int* sizes, int gw, int block_h,
+                             int block_w, MandelGeom g) {
     const int w = blockIdx.x;
     const int n = nclaims[w];
+    const int at = first[w];
 """
 ROWS = """    const int tile_px = block_h * block_w;
     for (int c = 0; c < n; ++c) {
-        for (int tile = starts[w * C + c]; tile < starts[w * C + c] + sizes[w * C + c]; ++tile) {
+        for (int tile = starts[at + c]; tile < starts[at + c] + sizes[at + c]; ++tile) {
             const int ti = tile / gw, tj = tile - ti * gw;
             for (int p = threadIdx.x; p < tile_px; p += blockDim.x) {
                 const int row = ti * block_h + p / block_w, col = tj * block_w + p % block_w;
@@ -59,7 +60,7 @@ ROWS = """    const int tile_px = block_h * block_w;
 PATCHES = """    const int patch_cols = (block_w + kPatchW - 1) / kPatchW;
     const int padded = (block_h + kPatchH - 1) / kPatchH * patch_cols * 32;
     for (int c = 0; c < n; ++c) {
-        for (int tile = starts[w * C + c]; tile < starts[w * C + c] + sizes[w * C + c]; ++tile) {
+        for (int tile = starts[at + c]; tile < starts[at + c] + sizes[at + c]; ++tile) {
             const int ti = tile / gw, tj = tile - ti * gw;
             for (int p = threadIdx.x; p < padded; p += blockDim.x) {
                 const int patch = p / 32, lane = p % 32;
@@ -75,7 +76,7 @@ PATCHES = """    const int patch_cols = (block_w + kPatchW - 1) / kPatchW;
 """
 PAIRS = """    const int pairs = (block_h + 1) / 2 * block_w;
     for (int c = 0; c < n; ++c) {
-        for (int tile = starts[w * C + c]; tile < starts[w * C + c] + sizes[w * C + c]; ++tile) {
+        for (int tile = starts[at + c]; tile < starts[at + c] + sizes[at + c]; ++tile) {
             const int ti = tile / gw, tj = tile - ti * gw;
             for (int q = threadIdx.x; q < pairs; q += blockDim.x) {
                 const int rp = q / block_w;
@@ -155,7 +156,7 @@ __device__ bool two_steps(Chain& ch, int ct) {
     return done;
 }
 """
-REFILL = """    Walk walk{starts + static_cast<size_t>(w) * C, sizes + static_cast<size_t>(w) * C, n, gw,
+REFILL = """    Walk walk{starts + at, sizes + at, n, gw,
               block_h, block_w, static_cast<int>(threadIdx.x) / block_w,
               static_cast<int>(threadIdx.x) % block_w, static_cast<int>(blockDim.x) / block_w,
               static_cast<int>(blockDim.x) % block_w};
@@ -222,7 +223,7 @@ def test_persistent_bodies_equal_static_and_are_timed(tmp_path):
     N = (cs.IMG // cs.TILE) ** 2
     image = mandelbrot(cs.IMG, ct=cs.CT)
     costs = mandelbrot_tile_costs(image, cs.TILE, cs.TILE)
-    tables = {t: claim_schedule(t, N, P, costs=costs).worker_lists()
+    tables = {t: claim_schedule(t, N, P, costs=costs).tables()
               for t in ("gss", "ss", "fac2")}
     library = _build.library
 
