@@ -43,7 +43,15 @@ protocol and applications through the port's public entry points:
      lengths drawn from seed 0) claimed by the device loop with gss, fac2
      and ss at P = the SM count; the SASS of the attention library must
      show tensor-core products (HGMMA) in both kernels' bf16 instances and
-     in no f32 instance;
+     in no f32 instance; then ``hybrid_attention_persistent`` over one
+     period of MiMo-V2-Flash's attention at the benchmark cell's widths (1
+     full layer of 64 q / 4 kv heads and 5 SWA layers of 64 / 8 with a
+     128-key window and sinks; q.k 192, v 128; one full-length and one short
+     row of T=16384), each layer's launch counted under its wide
+     instance's own key, held to the plain version on its own tables and,
+     on the valid rows, to the benchmark's plain reference, then each
+     instance timed: the ``flash_attention_persistent_full`` and
+     ``..._swa_sink`` rows;
   8. mamba2-370m at full width (48 layers, d_model 1024, 32 SSD heads of
      dim 64, state 128; random weights from seed 0): ``api.forward`` on
      B=4 prompts of 2048 tokens with ``backend="pallas"`` (the SSD scan
@@ -559,23 +567,33 @@ def attention_sass() -> None:
 
     lib = _build.build(["flash_attention"])["flash_attention"]
     ptxas = ptxas_report(_build.BUILD_LOGS.get("flash_attention", ""))
-    smem = _build.function("flash_attention", "repro_flash_attention_smem", ctypes.c_int)
+    smem = _build.function("flash_attention", "repro_flash_attention_smem", ctypes.c_int,
+                           ctypes.c_int)
     seen = set()
     for n, body in sorted(sass_functions(lib).items()):
-        # fa_<kind>_kernel<T, W>, mangled: T is f (float) or 13__nv_bfloat16
+        # fa_<kind>_kernel<T, W>, mangled: T is f (float) or 13__nv_bfloat16;
+        # the wide persistent instances fa_persistent_<full|swa_sink>_kernel<DQK, DV>
         inst = re.search(r"(fa_(?:static|persistent)_kernel)I(f|13__nv_bfloat16)Li(\d+)E", n)
-        if inst is None:
+        wide = re.search(r"(fa_persistent_(?:full|swa_sink)_kernel)ILi(\d+)ELi(\d+)E", n)
+        if inst is None and wide is None:
             continue
-        kernel, bf16, width = inst[1], inst[2] != "f", int(inst[3])
-        name = f"{kernel}<{'bf16' if bf16 else 'f32'}, {width}>"
+        if wide is not None:
+            kernel, bf16, width, v_width = wide[1], True, int(wide[2]), int(wide[3])
+            name = f"{kernel}<{width}, {v_width}>"
+        else:
+            kernel, bf16, width = inst[1], inst[2] != "f", int(inst[3])
+            v_width = width
+            name = f"{kernel}<{'bf16' if bf16 else 'f32'}, {width}>"
         hgmma = body.count("HGMMA")
         seen.add((kernel, bf16))
-        extra = f"; {smem(width)} bytes of dynamic shared memory" if bf16 else ""
+        extra = f"; {smem(width, v_width)} bytes of dynamic shared memory" if bf16 else ""
         print(f"sass {name}: {hgmma} HGMMA; ptxas {ptxas.get(n, 'not built here')}{extra}")
         check(hgmma > 0 if bf16 else hgmma == 0,
               f"{name}: HGMMA {'expected' if bf16 else 'not expected'} ({hgmma})")
     check(seen == {(k, b) for k in ("fa_static_kernel", "fa_persistent_kernel")
-                   for b in (False, True)}, f"attention instances in the SASS: {seen}")
+                   for b in (False, True)} | {("fa_persistent_full_kernel", True),
+                                              ("fa_persistent_swa_sink_kernel", True)},
+          f"attention instances in the SASS: {seen}")
 
 
 def sdpa_ms(q, k, v, **kw):
@@ -746,6 +764,103 @@ def attention_path(dev, P: int, static_launches: int):
         launches["flash_attention_persistent"], err["persistent_bf16"], p_ms,
         p_plain, b_var, p_lib))
     return out_rows
+
+
+# phase 7's hybrid stack: one period of MiMo-V2-Flash's attention at the
+# cell mimo-v2-flash-attn.period-mixed-gss's widths, over a full-length row
+# and a short one (the cell's 8 rows would hold 36 GB; the plain version
+# walks every tile side by side)
+HYB_H, HYB_D, HYB_DV, HYB_T, HYB_WINDOW = 64, 192, 128, 16384, 128
+HYB_LAYERS = ((4, None),) + ((8, HYB_WINDOW),) * 5  # (kv heads, window) a layer
+HYB_LENGTHS = (16384, 1000)
+
+
+def hybrid_path(dev, P: int):
+    """Phase 7, the hybrid stack: ``hybrid_attention_persistent`` over one
+    period (1 full + 5 SWA layers with sinks) at MiMo-V2-Flash's widths;
+    every layer held to ``_persistent_plain`` on its schedule's tables
+    within the bf16 bars and on its valid rows to the benchmark's plain
+    reference, padding rows zero; then each wide instance timed alone on
+    its layer's tables.  Returns the two kernel rows."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from loopbench.reference import hybrid_attention as ref
+    from repro_torch.device.persistent import on_device
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.persistent import (
+        LAUNCH_KEYS, _persistent_cuda, _persistent_plain, hybrid_attention_persistent)
+
+    lengths = np.array(HYB_LENGTHS, np.int32)
+    B, H, T, D, Dv, blk = len(lengths), HYB_H, HYB_T, HYB_D, HYB_DV, ATT_BLK
+    scale, N = D ** -0.5, len(lengths) * HYB_H * (HYB_T // ATT_BLK)
+    g = torch.Generator(device=dev).manual_seed(0)
+    layers = []
+    for Hkv, window in HYB_LAYERS:
+        q, k, v = (torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
+                   for shape in ((B, H, T, D), (B, Hkv, T, D), (B, Hkv, T, Dv)))
+        sinks = (None if window is None
+                 else math.log(128.0) + torch.randn(H, generator=g, device=dev))
+        layers.append((q, k, v, window, sinks))
+    torch.cuda.synchronize()
+
+    _build.reset_launches()
+    t_path = time.perf_counter()
+    got = hybrid_attention_persistent(layers, lengths=lengths, blk_q=blk, blk_k=blk,
+                                      technique="gss", workers=P)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    want = {"protocol": len(layers), "flash_attention_persistent": 0, LAUNCH_KEYS[0]: 1,
+            LAUNCH_KEYS[1]: len(layers) - 1}
+    print(f"hybrid path: {time.perf_counter() - t_path:.2f} s wall, launches "
+          f"{ {n: launches[n] for n in want} }")
+    for n, c in want.items():
+        check(launches[n] == c, f"hybrid path: {c} {n} launches, got {launches[n]}")
+
+    err = {}
+    for i, ((q, k, v, window, sinks), (out, sched)) in enumerate(zip(layers, got)):
+        name = LAUNCH_KEYS[window is not None]
+        check(out.shape == (B, H, T, Dv) and out.dtype == torch.bfloat16
+              and bool(out.isfinite().all()), f"hybrid layer {i}: shape, dtype, finite")
+        check(int(sched.sizes.sum()) == N, f"hybrid layer {i}: sizes.sum() == N")
+        ok, d, slack = bf16_close(out, _persistent_plain(
+            *sched.tables(), q, k, v, lengths, causal=True, scale=scale, blk_q=blk,
+            blk_k=blk, window=window, sinks=sinks, zero_padding=True))
+        check(ok, f"hybrid layer {i} ({name}): kernel == plain within the bf16 bars "
+                  f"(max {d!r}, slack {slack!r})")
+        d_ref = s_ref = 0.0
+        for b, L, r in ref.varlen_attention(q, k, v, lengths, window=window, sinks=sinks):
+            ok, d_b, s_b = bf16_close(out[b, :, :L], r)
+            d_ref, s_ref = max(d_ref, d_b), max(s_ref, s_b)
+            check(ok, f"hybrid layer {i} ({name}), row {b}: valid rows == reference within "
+                      f"the bf16 bars (max {d_b!r}, slack {s_b!r})")
+            check(not out[b, :, L:].any(), f"hybrid layer {i}, row {b}: padding rows zero")
+        err[name] = max(err.get(name, 0.0), d)
+        print(f"hybrid layer {i} {name} window={window}: max |kernel - plain| {d!r} "
+              f"(slack {slack!r}); valid rows vs reference {d_ref!r} (slack {s_ref!r}); "
+              f"{sched.n_steps} gss grants")
+
+    rows = []
+    for name, i in zip(LAUNCH_KEYS, (0, 1)):  # the full layer, the first SWA layer
+        q, k, v, window, sinks = layers[i]
+        tables = got[i][1].tables()
+        args = on_device((*tables, lengths), dev)
+        kw = {"causal": True, "scale": scale, "blk_q": blk, "blk_k": blk, "window": window,
+              "sinks": sinks, "zero_padding": True}
+        ms = cuda_ms(lambda: _persistent_cuda(*args[:4], q, k, v, args[4], **kw))
+        plain = cuda_ms(lambda: _persistent_plain(*tables, q, k, v, lengths, **kw),
+                        reps=1, warmup=False)
+        w = ref.layer_work(lengths, H, k.shape[1], D, Dv, window, q.element_size())
+        b_ms = bound(w["bytes"], w["ops"], BF16_FLOPS_PER_S)
+        print(f"time {name} (layer {i}, {w['pairs']} valid pairs): {ms!r} ms "
+              f"({w['ops'] / ms / 1e9!r} TFLOP/s, {w['bytes'] / ms / 1e6!r} GB/s; "
+              f"{100 * b_ms[0] / ms!r} % of the bound)")
+        rows.append(kernel_row(
+            name, FA_SOURCE, "src/repro/kernels/flash_attention/persistent.py:30",
+            launches[name], err[name], ms, plain, b_ms, None))
+    return rows
 
 
 def model_path(dev) -> int:
@@ -3364,6 +3479,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rows += attention_path(dev, P, static_launches=model_path(dev))
+    rows += hybrid_path(dev, P)
     t_ssm = time.perf_counter()
     rows.append(ssm_model_path(dev))
     print(f"ssm phase: {time.perf_counter() - t_ssm:.1f} s wall")

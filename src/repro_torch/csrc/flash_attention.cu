@@ -65,9 +65,26 @@
 // relevant blocks are one contiguous run, and every key outside it is
 // masked for every row of the tile, so both bodies walk just that run of
 // keys: the result is the TPU kernel's.  The persistent kernel walks its
-// tile's ceil(limit / blk_k) kv blocks, with limit = min(len_b, q_start +
-// blk_q) when causal, else len_b.  blk_k sets only the walk's range; the
-// bodies step through it in their own sub-tiles.
+// tile's kv blocks up to ceil(limit / blk_k), with limit = min(len_b,
+// q_start + blk_q) when causal, else len_b (`persistent_walk`).  blk_k sets
+// only the walk's range; the bodies step through it in their own sub-tiles.
+//
+// The persistent kernel's wide bf16 instances (a hybrid stack's layers,
+// MiMo-V2-Flash's widths): q.k head dim up to 192 (three 64-column panels)
+// and p.v head dim up to 128, with TMA maps of their own for q/k and v and
+// 208 KB of shared memory (Layout<192, 128>).  `fa_persistent_full_kernel`
+// is the full causal layer; `fa_persistent_swa_sink_kernel` adds, as
+// compile-time properties, a sliding window (key j is seen by row i iff
+// i - window < j <= i; the walk starts at the block of q_start - window + 1,
+// so a band of 128 walks two 128-key blocks) and a per-head sink logit b
+// (f32, not scaled): out_i = sum_j e^(s_ij) v_j / (e^b + sum_j e^(s_ij)),
+// the online softmax starting from max b and sum 1.  With zero_pad (every
+// instance, at run time) rows at or past len_b are padding: masked and
+// written as zeros; a claimed tile wholly past len_b is skipped, and the
+// workers zero such tiles in turn before their claims
+// (`zero_padding_tiles`), so that the schedule, which counts them as no
+// work, stays balanced.  The (W, W) instances keep their code otherwise: no
+// window, no sink.
 //
 // The static grid puts the longest causal q blocks first (blockIdx.y runs
 // backwards), so the last wave holds the short tiles.
@@ -114,10 +131,12 @@ __device__ __forceinline__ float comp(const float4& a, int e) {
 // the kv head's (Tk, D) rows of k and v at kv_at.  Every thread of the CTA
 // calls it (it synchronizes).  q is multiplied by q_scale when loaded and
 // the dot by s_scale: one of the two is 1, which leaves a value unchanged.
+// Rows below Tq are written, the masked ones (past mk.seq_q) with zeros.
 template <int NC>
 __device__ void attend_tile(const float* q, const float* k, const float* v, float* o,
-                            size_t q_at, size_t kv_at, int q_start, int D, const TileMask& mk,
-                            float q_scale, float s_scale, float* Ks, float* Vs) {
+                            size_t q_at, size_t kv_at, int q_start, int D, int Tq,
+                            const TileMask& mk, float q_scale, float s_scale, float* Ks,
+                            float* Vs) {
     constexpr int DP = 16 * NC;  // head dim padded to the threads' float4 chunks
     const int sub = threadIdx.x % kThreadsPerRow;
     const int row = q_start + threadIdx.x / kThreadsPerRow;
@@ -203,7 +222,7 @@ __device__ void attend_tile(const float* q, const float* k, const float* v, floa
         m = m_new;
     }
 
-    if (!row_ok) return;
+    if (row >= Tq) return;
     const float safe = l > 0.0f ? l : 1.0f;  // fully-masked rows -> zeros
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
@@ -235,17 +254,22 @@ constexpr int kProducerRegs = 56;              // setmaxnreg: the producer gives
 constexpr int kConsumerRegs = 224;             // the consumers (128 * (56 + 2*224) = 384 * 168)
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Dynamic shared memory of the DP instance, from a 1024-byte-aligned base
-// (the 128-byte swizzle repeats every 8 rows of 128 bytes): Q as [warpgroup]
-// [panel][64 rows], then each stage's K and V as [panel][128 keys], each
-// row 128 bytes; then the barriers.
-template <int DP>
+// Dynamic shared memory of the (DQK, DV) instance, q.k's and p.v's head
+// dims padded to 64-column panels, from a 1024-byte-aligned base (the
+// 128-byte swizzle repeats every 8 rows of 128 bytes): Q as [warpgroup]
+// [panel][64 rows], then each stage's K as [panel][128 keys] and its V
+// after it, each row 128 bytes; then the barriers.  (192, 128): Q 48 KB,
+// each stage 48 + 32 KB, 208 KB and the barriers.
+template <int DQK, int DV>
 struct Layout {
-    static constexpr int kPanels = DP / kPanel;
-    static constexpr int kQBytes = kPanels * kRows * 128;   // one warpgroup's Q rows
-    static constexpr int kKVBytes = kPanels * kKeys * 128;  // K (or V) of one stage
-    static constexpr int kK = 2 * kQBytes;                  // stage s: K at kK + 2*s*kKVBytes
-    static constexpr int kBar = kK + kStages * 2 * kKVBytes;
+    static constexpr int kQPanels = DQK / kPanel;
+    static constexpr int kVPanels = DV / kPanel;
+    static constexpr int kQBytes = kQPanels * kRows * 128;  // one warpgroup's Q rows
+    static constexpr int kKBytes = kQPanels * kKeys * 128;  // K of one stage
+    static constexpr int kVBytes = kVPanels * kKeys * 128;  // V of one stage
+    static constexpr int kStageBytes = kKBytes + kVBytes;
+    static constexpr int kK = 2 * kQBytes;                  // stage s: K at kK + s*kStageBytes
+    static constexpr int kBar = kK + kStages * kStageBytes;
     static constexpr int kBytes = kBar + 8 * (2 * kStages + 2) + 1024;  // + alignment slack
 };
 
@@ -253,9 +277,9 @@ struct Layout {
 // then the producer warpgroup.
 inline int threads(int blk_q) { return (blk_q > kRows ? 3 : 2) * 128; }
 
-template <int DP>
-__device__ __forceinline__ void wgmma_pv(float (&o)[DP / 2], const uint32_t (&a)[4], uint64_t b) {
-    if constexpr (DP == 64) {
+template <int DV>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DV / 2], const uint32_t (&a)[4], uint64_t b) {
+    if constexpr (DV == 64) {
         wgmma_rs_n64(o, a, b, 1);
     } else {
         wgmma_rs_n128(o, a, b, 1);
@@ -288,10 +312,14 @@ __device__ void fill(uint8_t* dst, const __nv_bfloat16* src, int head, int T, in
 }
 
 // The CTA's tiles, in the order `for_tiles` hands them over; every thread
-// of the CTA calls this.  Args has the tensors, their maps and the shapes.
-template <int DP, typename Args, typename ForTiles>
+// of the CTA calls this.  Args has the tensors, their maps and the shapes
+// (D q.k's head dim, Dv p.v's).  With kSink each row's softmax starts from
+// its head's sink logit b (a.sinks, not scaled): running max b, sum e^0 = 1,
+// accumulator 0, so the sink takes its share of the row's mass and adds no
+// value.
+template <int DQK, int DV, bool kSink, typename Args, typename ForTiles>
 __device__ void attend(const Args& a, ForTiles for_tiles) {
-    using L = Layout<DP>;
+    using L = Layout<DQK, DV>;
     extern __shared__ uint8_t smem_raw[];
     const uint32_t raw = smem_addr(smem_raw);
     const uint32_t base = (raw + 1023u) & ~1023u;
@@ -329,32 +357,32 @@ __device__ void attend(const Args& a, ForTiles for_tiles) {
             if (a.tma) {
                 mbar_expect_tx(q_full, nwg * L::kQBytes);
                 for (int w = 0; w < nwg; ++w)
-                    for (int p = 0; p < L::kPanels; ++p)
+                    for (int p = 0; p < L::kQPanels; ++p)
                         tma_load(base + w * L::kQBytes + p * kRows * 128, &a.maps.q, p * kPanel,
                                  tl.q_start + w * kRows, tl.bh, q_full);
             } else {
                 for (int w = 0; w < nwg; ++w)
-                    fill<DP>(smem + w * L::kQBytes, q, tl.bh, a.Tq, tl.q_start + w * kRows,
-                             kRows, a.D);
+                    fill<DQK>(smem + w * L::kQBytes, q, tl.bh, a.Tq, tl.q_start + w * kRows,
+                              kRows, a.D);
                 fence_proxy_async();
                 mbar_arrive(q_full);
             }
             for (int i = 0; i < tl.n_kv; ++i, ++n) {
                 const uint32_t s = n % kStages, use = n / kStages;
                 const int kv0 = tl.mk.kv_lo + i * kKeys;
-                const uint32_t ks = base + L::kK + s * 2 * L::kKVBytes, vs = ks + L::kKVBytes;
+                const uint32_t ks = base + L::kK + s * L::kStageBytes, vs = ks + L::kKBytes;
                 mbar_wait(empty + 8 * s, (use & 1) ^ 1);
                 if (a.tma) {
-                    mbar_expect_tx(full + 8 * s, 2 * L::kKVBytes);
-                    for (int p = 0; p < L::kPanels; ++p) {
+                    mbar_expect_tx(full + 8 * s, L::kStageBytes);
+                    for (int p = 0; p < L::kQPanels; ++p)
                         tma_load(ks + p * kKeys * 128, &a.maps.k, p * kPanel, kv0, tl.kvh,
                                  full + 8 * s);
+                    for (int p = 0; p < L::kVPanels; ++p)
                         tma_load(vs + p * kKeys * 128, &a.maps.v, p * kPanel, kv0, tl.kvh,
                                  full + 8 * s);
-                    }
                 } else {
-                    fill<DP>(smem + (ks - base), k, tl.kvh, a.Tk, kv0, kKeys, a.D);
-                    fill<DP>(smem + (vs - base), v, tl.kvh, a.Tk, kv0, kKeys, a.D);
+                    fill<DQK>(smem + (ks - base), k, tl.kvh, a.Tk, kv0, kKeys, a.D);
+                    fill<DV>(smem + (vs - base), v, tl.kvh, a.Tk, kv0, kKeys, a.Dv);
                     fence_proxy_async();
                     mbar_arrive(full + 8 * s);
                 }
@@ -381,16 +409,21 @@ __device__ void attend(const Args& a, ForTiles for_tiles) {
         const int rw0 = tl.q_start + wg * kRows;
         const int row_end = min(mk.seq_q, tl.q_start + a.blk_q);  // rows past it are masked
         const int col_end = min(mk.kv_len, mk.kv_hi);              // keys past it are masked
-        float o[DP / 2];
+        float o[DV / 2];
 #pragma unroll
-        for (int i = 0; i < DP / 2; ++i) o[i] = 0.0f;
+        for (int i = 0; i < DV / 2; ++i) o[i] = 0.0f;
         float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};  // per row, m in log2 units
+        if constexpr (kSink) {
+            // e^b as 2^(b log2 e - m) with m = b log2 e: 1, counted once a quad
+            m[0] = m[1] = a.sinks[tl.bh % a.H] * kLog2e;
+            l[0] = l[1] = c_in == 0 ? 1.0f : 0.0f;
+        }
 
         mbar_wait(q_full, t & 1);
         for (int it = 0; it < tl.n_kv; ++it, ++n) {
             const uint32_t s = n % kStages, use = n / kStages;
             const int kv0 = mk.kv_lo + it * kKeys;
-            const uint32_t ks = base + L::kK + s * 2 * L::kKVBytes, vs = ks + L::kKVBytes;
+            const uint32_t ks = base + L::kK + s * L::kStageBytes, vs = ks + L::kKBytes;
             mbar_wait(full + 8 * s, use & 1);
 
             // S = Q.K^T: D/16 steps of k16, 32 bytes apart in a 128-byte
@@ -401,7 +434,7 @@ __device__ void attend(const Args& a, ForTiles for_tiles) {
             fence_regs(sc);
             wgmma_fence();
 #pragma unroll
-            for (int kk = 0; kk < DP / 16; ++kk) {
+            for (int kk = 0; kk < DQK / 16; ++kk) {
                 const uint32_t at = (kk % 4) * 32;
                 wgmma_ss_n128(sc, smem_desc(q_wg + (kk / 4) * kRows * 128 + at, 16, 1024),
                               smem_desc(ks + (kk / 4) * kKeys * 128 + at, 16, 1024), kk > 0);
@@ -464,7 +497,7 @@ __device__ void attend(const Args& a, ForTiles for_tiles) {
 #pragma unroll
             for (int h = 0; h < 2; ++h) l[h] = alpha[h] * l[h] + rs[h];
 #pragma unroll
-            for (int i = 0; i < DP / 2; ++i) o[i] *= alpha[(i / 2) % 2];
+            for (int i = 0; i < DV / 2; ++i) o[i] *= alpha[(i / 2) % 2];
 
             // O += P.V: BN/16 steps of k16 keys, 16 rows of 128 bytes apart;
             // the panels of D are LBO apart
@@ -472,7 +505,7 @@ __device__ void attend(const Args& a, ForTiles for_tiles) {
             wgmma_fence();
 #pragma unroll
             for (int kk = 0; kk < kKeys / 16; ++kk)
-                wgmma_pv<DP>(o, pa[kk], smem_desc(vs + kk * 16 * 128, kKeys * 128, 1024));
+                wgmma_pv<DV>(o, pa[kk], smem_desc(vs + kk * 16 * 128, kKeys * 128, 1024));
             wgmma_commit();
             wgmma_wait();
             fence_regs(o);
@@ -481,25 +514,27 @@ __device__ void attend(const Args& a, ForTiles for_tiles) {
         mbar_arrive(q_empty);
         ++t;
 
-        // epilogue: the row sums over the quad, o / l (l = 0 writes 0)
+        // epilogue: the row sums over the quad, o / l (l = 0 writes 0); the
+        // tile's masked rows below Tq are written too
+        const int write_end = min(a.Tq, tl.q_start + a.blk_q);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
             l[h] = l[h] + __shfl_xor_sync(0xffffffffu, l[h], 1);
             l[h] = l[h] + __shfl_xor_sync(0xffffffffu, l[h], 2);
             const int row = rw0 + r_in + 8 * h;
-            if (row >= row_end) continue;
+            if (row >= write_end) continue;
             const float safe = l[h] > 0.0f ? l[h] : 1.0f;
-            __nv_bfloat16* orow = out + (static_cast<size_t>(tl.bh) * a.Tq + row) * a.D;
+            __nv_bfloat16* orow = out + (static_cast<size_t>(tl.bh) * a.Tq + row) * a.Dv;
 #pragma unroll
-            for (int j = 0; j < DP / 8; ++j) {
+            for (int j = 0; j < DV / 8; ++j) {
                 const int col = 8 * j + c_in;
-                if (col >= a.D) break;
+                if (col >= a.Dv) break;
                 const float v0 = o[4 * j + 2 * h] / safe, v1 = o[4 * j + 2 * h + 1] / safe;
-                if (a.D % 2 == 0) {
+                if (a.Dv % 2 == 0) {
                     *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(v0, v1);
                 } else {
                     orow[col] = __float2bfloat16_rn(v0);
-                    if (col + 1 < a.D) orow[col + 1] = __float2bfloat16_rn(v1);
+                    if (col + 1 < a.Dv) orow[col + 1] = __float2bfloat16_rn(v1);
                 }
             }
         }
@@ -522,7 +557,7 @@ struct StaticArgs {
     const void* k;  // (B*Hkv, Tk, D)
     const void* v;
     void* out;      // (B*H, Tq, D)
-    int H, Hkv, Tq, Tk, D, blk_q, blk_k, causal, has_window, window, tma;
+    int H, Hkv, Tq, Tk, D, Dv, blk_q, blk_k, causal, has_window, window, tma;  // Dv = D
     float scale;
 };
 
@@ -557,33 +592,64 @@ __global__ void __launch_bounds__(kThreadsOf<T>, 1)
         attend_tile<W>(static_cast<const float*>(a.q), static_cast<const float*>(a.k),
                        static_cast<const float*>(a.v), static_cast<float*>(a.out),
                        static_cast<size_t>(bh) * a.Tq * a.D,
-                       static_cast<size_t>(kvh) * a.Tk * a.D, q_start, a.D, mk, 1.0f, a.scale,
-                       Ks, Vs);
+                       static_cast<size_t>(kvh) * a.Tk * a.D, q_start, a.D, a.Tq, mk, 1.0f,
+                       a.scale, Ks, Vs);
     } else {
         const tc::Tile tile{bh, kvh, q_start, (mk.kv_hi - mk.kv_lo + tc::kKeys - 1) / tc::kKeys,
                             mk};
-        tc::attend<W>(a, [&](auto&& f) { f(tile); });
+        tc::attend<W, W, false>(a, [&](auto&& f) { f(tile); });
     }
 }
 
 struct PersistentArgs {
-    TmaMaps maps;        // as StaticArgs
+    TmaMaps maps;        // as StaticArgs, v's map (Dv, Tk, B*Hkv)
     const int* nclaims;  // (W,)
     const int* first;    // (W,): worker w's claims at first[w] + c, c < nclaims[w]
     const int* starts;   // flat, worker-major
     const int* sizes;
     const void* q;       // (B*H, Tq, D)
     const void* k;       // (B*Hkv, Tk, D)
-    const void* v;
+    const void* v;       // (B*Hkv, Tk, Dv)
     const int* lengths;  // (B,)
-    void* out;           // (B*H, Tq, D)
-    int H, Hkv, Tq, Tk, D, nq, blk_q, blk_k, causal, tma;
+    const float* sinks;  // (H,): the sink instances' logits
+    void* out;           // (B*H, Tq, Dv)
+    int BH, H, Hkv, Tq, Tk, D, Dv, nq, blk_q, blk_k, causal, window, zero_pad, tma;
     float scale;
 };
 
-template <typename T, int W>
-__global__ void __launch_bounds__(kThreadsOf<T>, 1)
-    fa_persistent_kernel(const __grid_constant__ PersistentArgs a) {
+// With zero_pad: the rows of the tiles wholly past their batch row's length
+// (each tile's rows of out are contiguous) are zeroed by the workers in
+// turn, tile w, w + workers, ..., whatever the schedule, so that the
+// claimed tiles, which skip them, and the cost model, which counts them as
+// nothing, agree with the work done.  All of the CTA's threads, before
+// they split into producer and consumers.
+template <typename T>
+__device__ void zero_padding_tiles(const PersistentArgs& a) {
+    for (int tile = blockIdx.x; tile < a.BH * a.nq; tile += gridDim.x) {
+        const int bh = tile / a.nq;
+        const int q_start = (tile - bh * a.nq) * a.blk_q;
+        if (q_start < a.lengths[bh / a.H]) continue;
+        T* o = static_cast<T*>(a.out) + (static_cast<size_t>(bh) * a.Tq + q_start) * a.Dv;
+        const size_t n = static_cast<size_t>(min(a.blk_q, a.Tq - q_start)) * a.Dv;
+        if (reinterpret_cast<uintptr_t>(o) % 16 == 0 && (n * sizeof(T)) % 16 == 0) {
+            uint4* o4 = reinterpret_cast<uint4*>(o);
+            for (size_t e = threadIdx.x; e < n * sizeof(T) / 16; e += blockDim.x)
+                o4[e] = make_uint4(0u, 0u, 0u, 0u);
+        } else {
+            for (size_t e = threadIdx.x; e < n; e += blockDim.x) o[e] = T(0.0f);
+        }
+    }
+}
+
+// The persistent walk of every instance.  A tile's keys are the run of
+// blk_k blocks from the window's first (kWindow: the block of q_start -
+// window + 1, else 0) to ceil(limit / blk_k), limit = min(len_b, q_start +
+// blk_q) when causal, else len_b.  With zero_pad the rows at or past len_b
+// are masked (they write 0) and a claimed tile wholly past it is skipped
+// (`zero_padding_tiles` writes its zeros).
+template <typename T, int DQK, int DV, bool kWindow, bool kSink>
+__device__ __forceinline__ void persistent_walk(const PersistentArgs& a) {
+    if (a.zero_pad) zero_padding_tiles<T>(a);
     const int w = blockIdx.x;
     const int group = a.H / a.Hkv;
     const int n = a.nclaims[w];
@@ -600,31 +666,57 @@ __global__ void __launch_bounds__(kThreadsOf<T>, 1)
                 const int b = bh / a.H;
                 const int kvh = b * a.Hkv + (bh - b * a.H) / group;
                 const int len_b = a.lengths[b];
+                if (a.zero_pad && q_start >= len_b) continue;
                 // kv trip count: only the blocks this tile attends
                 const int limit = a.causal ? min(len_b, q_start + a.blk_q) : len_b;
                 const int jmax = (limit + a.blk_k - 1) / a.blk_k;
-                const TileMask mk{a.Tq, len_b, 0, min(jmax * a.blk_k, a.Tk), a.causal, 0, 0};
+                const int jmin = kWindow ? min(max(q_start - a.window + 1, 0) / a.blk_k, jmax) : 0;
+                const TileMask mk{a.zero_pad ? min(len_b, a.Tq) : a.Tq, len_b, jmin * a.blk_k,
+                                  min(jmax * a.blk_k, a.Tk), a.causal, kWindow, a.window};
                 f(bh, kvh, q_start, mk);
             }
         }
     };
     if constexpr (std::is_same_v<T, float>) {
-        __shared__ __align__(16) float Ks[kKeys * 16 * W];
-        __shared__ __align__(16) float Vs[kKeys * 16 * W];
+        __shared__ __align__(16) float Ks[kKeys * 16 * DQK];
+        __shared__ __align__(16) float Vs[kKeys * 16 * DQK];
         for_tiles([&](int bh, int kvh, int q_start, const TileMask& mk) {
-            attend_tile<W>(static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-                           static_cast<const float*>(a.v), static_cast<float*>(a.out),
-                           static_cast<size_t>(bh) * a.Tq * a.D,
-                           static_cast<size_t>(kvh) * a.Tk * a.D, q_start, a.D, mk, a.scale,
-                           1.0f, Ks, Vs);
+            attend_tile<DQK>(static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+                             static_cast<const float*>(a.v), static_cast<float*>(a.out),
+                             static_cast<size_t>(bh) * a.Tq * a.D,
+                             static_cast<size_t>(kvh) * a.Tk * a.D, q_start, a.D, a.Tq, mk,
+                             a.scale, 1.0f, Ks, Vs);
         });
     } else {
-        tc::attend<W>(a, [&](auto&& f) {
+        tc::attend<DQK, DV, kSink>(a, [&](auto&& f) {
             for_tiles([&](int bh, int kvh, int q_start, const TileMask& mk) {
-                f(tc::Tile{bh, kvh, q_start, (mk.kv_hi + tc::kKeys - 1) / tc::kKeys, mk});
+                f(tc::Tile{bh, kvh, q_start,
+                           (mk.kv_hi - mk.kv_lo + tc::kKeys - 1) / tc::kKeys, mk});
             });
         });
     }
+}
+
+// Head dims (W, W), no window, no sink: T = float with W float4 chunks a
+// thread, or bf16 with the head dim padded to W.
+template <typename T, int W>
+__global__ void __launch_bounds__(kThreadsOf<T>, 1)
+    fa_persistent_kernel(const __grid_constant__ PersistentArgs a) {
+    persistent_walk<T, W, W, false, false>(a);
+}
+
+// bf16, q.k head dim DQK and p.v head dim DV: a full causal layer ...
+template <int DQK, int DV>
+__global__ void __launch_bounds__(tc::kThreads, 1)
+    fa_persistent_full_kernel(const __grid_constant__ PersistentArgs a) {
+    persistent_walk<__nv_bfloat16, DQK, DV, false, false>(a);
+}
+
+// ... and a sliding-window layer with per-head sink logits.
+template <int DQK, int DV>
+__global__ void __launch_bounds__(tc::kThreads, 1)
+    fa_persistent_swa_sink_kernel(const __grid_constant__ PersistentArgs a) {
+    persistent_walk<__nv_bfloat16, DQK, DV, true, true>(a);
 }
 
 // ---------------------------------------------------------------------------
@@ -662,11 +754,23 @@ bool encode(CUtensorMap* map, const void* base, int heads, int T, int D, int row
 template <typename Args>
 bool set_maps(Args& a, int BH, int BHkv) {
     const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-    a.tma = a.D % 8 == 0 && aligned(a.q) && aligned(a.k) && aligned(a.v);
+    a.tma = a.D % 8 == 0 && a.Dv % 8 == 0 && aligned(a.q) && aligned(a.k) && aligned(a.v);
     if (!a.tma) return true;
     return encode(&a.maps.q, a.q, BH, a.Tq, a.D, tc::kRows) &&
            encode(&a.maps.k, a.k, BHkv, a.Tk, a.D, tc::kKeys) &&
-           encode(&a.maps.v, a.v, BHkv, a.Tk, a.D, tc::kKeys);
+           encode(&a.maps.v, a.v, BHkv, a.Tk, a.Dv, tc::kKeys);
+}
+
+// A bf16 launch of `kernel` over `grid` CTAs with the (DQK, DV) layout:
+// more than the 48 KB of shared memory a launch gets by default.
+template <int DQK, int DV, typename Kernel, typename Args>
+cudaError_t launch_tc(Kernel kernel, dim3 grid, const Args& a, cudaStream_t stream) {
+    const int bytes = tc::Layout<DQK, DV>::kBytes;
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, tc::threads(a.blk_q), bytes, stream>>>(a);
+    return cudaGetLastError();
 }
 
 template <typename T, int W>
@@ -674,38 +778,32 @@ cudaError_t launch(const StaticArgs& a, int BH, cudaStream_t stream) {
     const dim3 grid(BH, (a.Tq + a.blk_q - 1) / a.blk_q);
     if constexpr (std::is_same_v<T, float>) {
         fa_static_kernel<T, W><<<grid, kThreadsPerRow * a.blk_q, 0, stream>>>(a);
+        return cudaGetLastError();
     } else {
-        // more than the 48 KB of shared memory a launch gets by default
-        const int bytes = tc::Layout<W>::kBytes;
-        const cudaError_t err = cudaFuncSetAttribute(
-            fa_static_kernel<T, W>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-        if (err != cudaSuccess) return err;
-        fa_static_kernel<T, W><<<grid, tc::threads(a.blk_q), bytes, stream>>>(a);
+        return launch_tc<W, W>(fa_static_kernel<T, W>, grid, a, stream);
     }
-    return cudaGetLastError();
 }
 
 template <typename T, int W>
 cudaError_t launch(const PersistentArgs& a, int workers, cudaStream_t stream) {
     if constexpr (std::is_same_v<T, float>) {
         fa_persistent_kernel<T, W><<<workers, kThreadsPerRow * a.blk_q, 0, stream>>>(a);
+        return cudaGetLastError();
     } else {
-        // more than the 48 KB of shared memory a launch gets by default
-        const int bytes = tc::Layout<W>::kBytes;
-        const cudaError_t err = cudaFuncSetAttribute(
-            fa_persistent_kernel<T, W>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-        if (err != cudaSuccess) return err;
-        fa_persistent_kernel<T, W><<<workers, tc::threads(a.blk_q), bytes, stream>>>(a);
+        return launch_tc<W, W>(fa_persistent_kernel<T, W>, dim3(workers), a, stream);
     }
-    return cudaGetLastError();
 }
 
-// Launch the instance for the dtype (0 f32, 1 bf16) and head dim.
+template <typename Args>
+bool bad_blocks(const Args& a) {
+    return a.blk_q < 8 || a.blk_q > kMaxBlkQ || a.blk_q % 8 != 0 || a.blk_k < 1;
+}
+
+// Launch the instance for the dtype (0 f32, 1 bf16) and head dim D = Dv.
 template <typename Args>
 int dispatch(Args& a, int dtype, int grid_arg, int BH, int BHkv, void* stream) {
     const auto s = static_cast<cudaStream_t>(stream);
-    if (a.D < 1 || a.D > 128 || a.blk_q < 8 || a.blk_q > kMaxBlkQ || a.blk_q % 8 != 0 ||
-        a.blk_k < 1 || (dtype != 0 && dtype != 1))
+    if (a.D < 1 || a.D > 128 || a.Dv != a.D || bad_blocks(a) || (dtype != 0 && dtype != 1))
         return static_cast<int>(cudaErrorInvalidValue);
     if (dtype == 1) {
         if (!set_maps(a, BH, BHkv)) return static_cast<int>(cudaErrorInvalidValue);
@@ -719,6 +817,11 @@ int dispatch(Args& a, int dtype, int grid_arg, int BH, int BHkv, void* stream) {
         default: return static_cast<int>(launch<float, 8>(a, grid_arg, s));
     }
 }
+
+// The wide bf16 instances: q.k head dim in (128, 192], p.v's in (64, 128].
+constexpr int kWideQK = 192, kWideV = 128;
+
+bool wide_heads(int D, int Dv) { return D > 128 && D <= kWideQK && Dv > 64 && Dv <= kWideV; }
 
 }  // namespace
 
@@ -738,6 +841,7 @@ extern "C" int repro_flash_attention(int device, int dtype, void* q, void* k, vo
     a.Tq = Tq;
     a.Tk = Tk;
     a.D = D;
+    a.Dv = D;
     a.blk_q = blk_q;
     a.blk_k = blk_k;
     a.causal = causal;
@@ -747,13 +851,18 @@ extern "C" int repro_flash_attention(int device, int dtype, void* q, void* k, vo
     return dispatch(a, dtype, BH, BH, BH / H * Hkv, stream);
 }
 
+// Which instance takes what is stated once, by the Python wrapper
+// (`kernel.check_kernel_inputs`): heads (D, D) with D <= 128 take no window
+// and no sinks; the wide heads take neither (the full instance) or both (the
+// window + sink one).  Anything else is refused here as an invalid value.
 extern "C" int repro_flash_attention_persistent(int device, int dtype, void* nclaims,
                                                 void* first, void* starts, void* sizes,
                                                 int workers,
                                                 void* q, void* k, void* v, void* lengths,
-                                                void* out, int B, int H, int Hkv, int Tq, int Tk,
-                                                int D, int nq, int blk_q, int blk_k, int causal,
-                                                float scale, void* stream) {
+                                                void* sinks, void* out, int B, int H, int Hkv,
+                                                int Tq, int Tk, int D, int Dv, int nq, int blk_q,
+                                                int blk_k, int causal, int has_window, int window,
+                                                int zero_pad, float scale, void* stream) {
     const DeviceGuard guard(device);
     if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
     PersistentArgs a{};
@@ -765,21 +874,39 @@ extern "C" int repro_flash_attention_persistent(int device, int dtype, void* ncl
     a.k = k;
     a.v = v;
     a.lengths = static_cast<const int*>(lengths);
+    a.sinks = static_cast<const float*>(sinks);
     a.out = out;
+    a.BH = B * H;
     a.H = H;
     a.Hkv = Hkv;
     a.Tq = Tq;
     a.Tk = Tk;
     a.D = D;
+    a.Dv = Dv;
     a.nq = nq;
     a.blk_q = blk_q;
     a.blk_k = blk_k;
     a.causal = causal;
+    a.window = window;
+    a.zero_pad = zero_pad;
     a.scale = scale;
-    return dispatch(a, dtype, workers, B * H, B * Hkv, stream);
+    if (dtype != 1 || !wide_heads(D, Dv)) {
+        if (has_window || sinks != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+        return dispatch(a, dtype, workers, B * H, B * Hkv, stream);
+    }
+    if (bad_blocks(a) || (has_window != 0) != (sinks != nullptr) || (has_window && window < 1) ||
+        !set_maps(a, B * H, B * Hkv))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const auto s = static_cast<cudaStream_t>(stream);
+    return static_cast<int>(
+        has_window ? launch_tc<kWideQK, kWideV>(fa_persistent_swa_sink_kernel<kWideQK, kWideV>,
+                                                dim3(workers), a, s)
+                   : launch_tc<kWideQK, kWideV>(fa_persistent_full_kernel<kWideQK, kWideV>,
+                                                dim3(workers), a, s));
 }
 
-// Dynamic shared memory a bf16 launch at head dim D asks for (bytes).
-extern "C" int repro_flash_attention_smem(int D) {
-    return D <= 64 ? tc::Layout<64>::kBytes : tc::Layout<128>::kBytes;
+// Dynamic shared memory a bf16 launch with heads (D, Dv) asks for (bytes).
+extern "C" int repro_flash_attention_smem(int D, int Dv) {
+    if (wide_heads(D, Dv)) return tc::Layout<kWideQK, kWideV>::kBytes;
+    return D <= 64 ? tc::Layout<64, 64>::kBytes : tc::Layout<128, 128>::kBytes;
 }

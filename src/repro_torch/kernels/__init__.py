@@ -8,6 +8,8 @@ Port of ``repro.kernels``, all four of its kernel packages:
                      before the full sequence, atomic histogram
   flash_attention -- fused attention (causal/SWA/GQA), static grid and
                      persistent self-scheduled grid over varlen batches
+                     (windows, sinks, a v head dim of its own; a hybrid
+                     stack of such layers)
   ssd_scan        -- the Mamba2 SSD chunked scan (state carried across
                      chunks), the SSM model's forward and prefill
 
@@ -17,7 +19,8 @@ sources are in ``repro_torch/csrc`` and are built at first use
 (``_build``).
 """
 from .flash_attention.ops import attention_oracle, flash_attention  # noqa: F401
-from .flash_attention.persistent import flash_attention_persistent  # noqa: F401
+from .flash_attention.persistent import (  # noqa: F401
+    flash_attention_persistent, hybrid_attention_persistent)
 from .mandelbrot.ops import mandelbrot, mandelbrot_ref  # noqa: F401
 from .mandelbrot.persistent import mandelbrot_persistent  # noqa: F401
 from .spin_image.ops import spin_images, spin_images_oracle  # noqa: F401

@@ -58,7 +58,9 @@ LAUNCHES: Dict[str, int] = {
     "mandelbrot_persistent": 0,
     "spin_image": 0,
     "flash_attention": 0,
-    "flash_attention_persistent": 0,
+    "flash_attention_persistent": 0,  # the (W, W) instances
+    "flash_attention_persistent_full": 0,  # the wide full one ...
+    "flash_attention_persistent_swa_sink": 0,  # ... and the wide SWA one with sinks
     "ssd_scan": 0,
 }
 

@@ -23,39 +23,72 @@ from .ref import NEG_INF
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: the kernels keep a query row's accumulator in registers: head dim <= 128
 MAX_HEAD_DIM = 128
+#: the persistent kernel's wide bf16 instances: a q.k head dim in
+#: (MAX_HEAD_DIM, WIDE_QK_DIM] with a p.v head dim of its own in (64, WIDE_V_DIM]
+WIDE_QK_DIM, WIDE_V_DIM = 192, 128
 #: a CTA holds one q block: four threads per row in f32 (512 threads at
 #: 128), two 64-row tensor-core warpgroups in bf16
 MAX_BLK_Q = 128
 
 
-def check_kernel_inputs(q, k, v, blk_q: int, blk_k: int, what: str):
-    """Validate (q, k, v) for a CUDA attention kernel; (B, H, Hkv, Tq, Tk, D)."""
+def wide_heads(dtype, D: int, Dv: int) -> bool:
+    """Whether (D, Dv) are the heads of the persistent kernel's wide instances."""
+    return (dtype == torch.bfloat16 and MAX_HEAD_DIM < D <= WIDE_QK_DIM
+            and 64 < Dv <= WIDE_V_DIM)
+
+
+def check_kernel_inputs(q, k, v, blk_q: int, blk_k: int, what: str, *, wide: bool = False,
+                        window=None, sinks=None):
+    """Validate (q, k, v) for a CUDA attention kernel; (B, H, Hkv, Tq, Tk, D, Dv).
+
+    v may have a head dim Dv of its own only where ``wide`` admits the
+    persistent kernel's wide bf16 instances (``wide_heads``); otherwise
+    D = Dv <= MAX_HEAD_DIM.  The persistent kernel's ``window`` and ``sinks``
+    come together, in a wide instance (the SWA one; neither: the full one).
+    This is the one statement of which instance takes what: the C entry
+    refuses anything else with ``cudaErrorInvalidValue``.
+    """
     if q.dtype not in DTYPE_CODE:
         raise ValueError(f"{what}: q must be float32 or bfloat16, got {q.dtype}")
     B, H, Tq, D = q.shape
     _, Hkv, Tk, _ = k.shape
+    Dv = v.shape[-1]
     _build.require_cuda(q, "q", q.dtype, (B, H, Tq, D))
     _build.require_cuda(k, "k", q.dtype, (B, Hkv, Tk, D))
-    _build.require_cuda(v, "v", q.dtype, (B, Hkv, Tk, D))
+    _build.require_cuda(v, "v", q.dtype, (B, Hkv, Tk, Dv))
     if not (q.device == k.device == v.device):
         raise ValueError(f"{what}: q, k and v must be on one device")
     if Hkv == 0 or H % Hkv:
         raise ValueError(f"{what}: GQA requires H={H} divisible by Hkv={Hkv}")
-    if not 0 < D <= MAX_HEAD_DIM:
-        raise ValueError(f"{what}: head dim {D} must be in [1, {MAX_HEAD_DIM}]")
+    if not (wide and wide_heads(q.dtype, D, Dv)):
+        if Dv != D:
+            raise ValueError(
+                f"{what}: v's head dim {Dv} differs from q's and k's {D}; a v head dim of "
+                f"its own is taken only by the persistent kernel in bf16, with q.k's in "
+                f"({MAX_HEAD_DIM}, {WIDE_QK_DIM}] and v's in (64, {WIDE_V_DIM}]")
+        if not 0 < D <= MAX_HEAD_DIM:
+            raise ValueError(f"{what}: head dim {D} must be in [1, {MAX_HEAD_DIM}]" + (
+                f", or in bf16 ({MAX_HEAD_DIM}, {WIDE_QK_DIM}] with v's in (64, {WIDE_V_DIM}]"
+                if wide else ""))
+    if (window is not None or sinks is not None) and not (
+            window is not None and sinks is not None and wide and wide_heads(q.dtype, D, Dv)):
+        raise ValueError(
+            f"{what}: on the card a window and sinks come together, in the bf16 kernel's "
+            f"wide instance (q.k head dim in ({MAX_HEAD_DIM}, {WIDE_QK_DIM}], v's in "
+            f"(64, {WIDE_V_DIM}]); got D={D}, Dv={Dv}, {q.dtype}, window={window}, "
+            f"sinks {'given' if sinks is not None else 'None'}")
     if not (0 < blk_q <= MAX_BLK_Q and blk_q % 8 == 0):
         raise ValueError(f"{what}: blk_q={blk_q} must be a multiple of 8 "
                          f"in [8, {MAX_BLK_Q}]")
     if blk_k <= 0:
         raise ValueError(f"{what}: blk_k={blk_k} must be positive")
-    return B, H, Hkv, Tq, Tk, D
+    return B, H, Hkv, Tq, Tk, D, Dv
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window=None,
                          scale=None, blk_q: int = 128, blk_k: int = 128):
     """Launch the static kernel; (B, H, Tq, D) in q's dtype on q's card."""
-    B, H, Hkv, Tq, Tk, D = check_kernel_inputs(q, k, v, blk_q, blk_k,
-                                               "flash_attention")
+    B, H, Hkv, Tq, Tk, D, _ = check_kernel_inputs(q, k, v, blk_q, blk_k, "flash_attention")
     scale = (D ** -0.5) if scale is None else scale
     out = torch.empty_like(q)
     c_int, c_float, c_ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p

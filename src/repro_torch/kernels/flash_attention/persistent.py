@@ -11,8 +11,16 @@ kv-block count (``varlen_tile_costs``): the device claim loop
 with a per-tile kv trip count -- work proportional to the sequence actually
 attended, not the padded maximum.
 
-Scope: causal or full attention with GQA and per-batch ``lengths``;
-sliding-window masking stays on the static path.
+Scope: causal or full attention with GQA and per-batch ``lengths``; a
+sliding ``window``, per-head ``sinks`` logits and a v head dim of its own
+(``flash_attention_persistent``), and a hybrid stack of such layers over one
+batch (``hybrid_attention_persistent``: one claim and one launch a layer,
+the cost model once a layer kind, padding rows zeroed and their tiles
+skipped).  On the card, heads (D, D) with D <= 128
+take neither window nor sinks; a window and sinks come together, in bf16
+with a q.k head dim in (128, 192] and v's in (64, 128] (``kernel.wide_heads``:
+MiMo-V2-Flash's SWA layers; the same heads without either are its full
+layers).  The plain versions on the CPU take every combination.
 """
 from __future__ import annotations
 
@@ -22,19 +30,26 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.spans import span
+from repro_torch.spans import count, span
 
-from .kernel import DTYPE_CODE, check_kernel_inputs
+from .kernel import DTYPE_CODE, check_kernel_inputs, wide_heads
 from .ops import placed, refuse_grad
 from .ref import NEG_INF
 
 
+#: ``_build.LAUNCHES``'s keys of the wide instances, full and SWA with sinks
+LAUNCH_KEYS = ("flash_attention_persistent_full", "flash_attention_persistent_swa_sink")
+
+
 def varlen_tile_costs(lengths, H: int, nq: int, blk_q: int, blk_k: int,
-                      causal: bool = True):
+                      causal: bool = True, window=None, zero_padding: bool = False):
     """kv blocks actually visited per (batch*head, q-block) tile.
 
     Row-major over ``B*H*nq`` tiles, matching the persistent kernel's
     linearization -- the cost model the device claim loop balances on.
+    With ``window`` the walk starts at the block of key q_start - window + 1;
+    with ``zero_padding`` a tile wholly at or past its row's length walks
+    nothing.
     """
     lengths = np.asarray(lengths, np.int64)
     B = len(lengths)
@@ -44,6 +59,13 @@ def varlen_tile_costs(lengths, H: int, nq: int, blk_q: int, blk_k: int,
         qi = tile % nq
         limit = min(lengths[b], (qi + 1) * blk_q) if causal else lengths[b]
         costs[tile] = max(-(-int(limit) // blk_k), 0)
+    if window is not None or zero_padding:
+        tiles = costs.reshape(B, H, nq)
+        q_start = np.arange(nq) * blk_q
+        if window is not None:
+            tiles[:] = np.maximum(tiles - np.maximum(q_start - window + 1, 0) // blk_k, 0)
+        if zero_padding:
+            tiles *= (q_start < lengths[:, None])[:, None]
     return costs
 
 
@@ -56,28 +78,29 @@ def _claimed_tiles(nclaims, first, starts, sizes) -> np.ndarray:
 
 
 def _persistent_plain(nclaims, first, starts, sizes, q, k, v, lengths, *, causal,
-                      scale, blk_q, blk_k):
+                      scale, blk_q, blk_k, window=None, sinks=None, zero_padding=False):
     """The plain version: the claimed tiles' online softmax, kv block by kv
-    block, each tile stopping at its own trip count.
+    block, each tile walking its own run of blocks.
 
     Tiles are taken from the tables in order and run side by side: at kv
-    step ``j`` every tile whose trip count exceeds ``j`` advances, with the
-    arithmetic of the kernel's tile body (q scaled before the dot).
+    step ``j`` every tile whose run holds ``j`` advances, with the
+    arithmetic of the kernel's tile body (q scaled before the dot; a sink
+    starts a row's softmax at max b, sum 1).
     """
     B, H, Tq, D = q.shape
-    _, Hkv, Tk, _ = k.shape
+    _, Hkv, Tk, Dv = v.shape
     group = H // Hkv
     nq, nk = -(-Tq // blk_q), -(-Tk // blk_k)
     dev = q.device
     qp = torch.zeros((B * H, nq * blk_q, D), device=dev)
     qp[:, :Tq] = q.float().reshape(B * H, Tq, D)
     kp = torch.zeros((B * Hkv, nk * blk_k, D), device=dev)
-    vp = torch.zeros_like(kp)
+    vp = torch.zeros((B * Hkv, nk * blk_k, Dv), device=dev)
     kp[:, :Tk] = k.float().reshape(B * Hkv, Tk, D)
-    vp[:, :Tk] = v.float().reshape(B * Hkv, Tk, D)
+    vp[:, :Tk] = v.float().reshape(B * Hkv, Tk, Dv)
     qp = qp.reshape(B * H, nq, blk_q, D)
     kp = kp.reshape(B * Hkv, nk, blk_k, D)
-    vp = vp.reshape(B * Hkv, nk, blk_k, D)
+    vp = vp.reshape(B * Hkv, nk, blk_k, Dv)
 
     tile = torch.as_tensor(_claimed_tiles(nclaims, first, starts, sizes), device=dev).long()
     bh = tile // nq
@@ -88,19 +111,30 @@ def _persistent_plain(nclaims, first, starts, sizes, q, k, v, lengths, *, causal
     len_b = torch.as_tensor(lengths, device=dev).long()[b]
     limit = torch.minimum(len_b, q_start + blk_q) if causal else len_b
     jmax = (limit + blk_k - 1) // blk_k
+    if zero_padding:
+        jmax = torch.where(q_start >= len_b, 0, jmax)
+    jmin = torch.zeros_like(jmax)
+    if window is not None:
+        jmin = torch.minimum((q_start - window + 1).clamp(min=0) // blk_k, jmax)
+    seq_q = torch.clamp(len_b, max=Tq) if zero_padding else torch.full_like(len_b, Tq)
 
     qt = qp[bh, qi] * scale  # (n, blk_q, D)
     rows = q_start[:, None, None] + torch.arange(blk_q, device=dev)[None, :, None]
     m = torch.full((len(tile), blk_q, 1), NEG_INF, device=dev)
     l = torch.zeros_like(m)
-    acc = torch.zeros_like(qt)
-    for j in range(int(jmax.max())):
-        a = torch.nonzero(jmax > j).squeeze(1)
+    if sinks is not None:
+        m[:] = torch.as_tensor(sinks, device=dev).float()[bh - b * H][:, None, None]
+        l[:] = 1.0
+    acc = torch.zeros((len(tile), blk_q, Dv), device=dev)
+    for j in range(int(jmin.min()) if len(tile) else 0, int(jmax.max()) if len(tile) else 0):
+        a = torch.nonzero((jmin <= j) & (jmax > j)).squeeze(1)
         s = qt[a] @ kp[kv[a], j].transpose(-1, -2)  # (na, blk_q, blk_k)
         cols = j * blk_k + torch.arange(blk_k, device=dev)[None, None, :]
-        mask = (rows[a] < Tq) & (cols < len_b[a, None, None])
+        mask = (rows[a] < seq_q[a, None, None]) & (cols < len_b[a, None, None])
         if causal:
             mask &= cols <= rows[a]
+        if window is not None:
+            mask &= cols > rows[a] - window
         s = torch.where(mask, s, NEG_INF)
         m_new = torch.maximum(m[a], s.amax(dim=-1, keepdim=True))
         p = torch.exp(s - m_new) * mask.float()
@@ -108,47 +142,111 @@ def _persistent_plain(nclaims, first, starts, sizes, q, k, v, lengths, *, causal
         l[a] = alpha * l[a] + p.sum(dim=-1, keepdim=True)
         acc[a] = acc[a] * alpha + p @ vp[kv[a], j]
         m[a] = m_new
-    out = torch.zeros((B * H, nq, blk_q, D), dtype=q.dtype, device=dev)
+    out = torch.zeros((B * H, nq, blk_q, Dv), dtype=q.dtype, device=dev)
     out[bh, qi] = (acc / torch.where(l > 0.0, l, 1.0)).to(q.dtype)
-    return out.reshape(B, H, nq * blk_q, D)[:, :, :Tq]
+    return out.reshape(B, H, nq * blk_q, Dv)[:, :, :Tq]
 
 
 def _persistent_cuda(nclaims, first, starts, sizes, q, k, v, lengths, *, causal,
-                     scale, blk_q, blk_k):
+                     scale, blk_q, blk_k, window=None, sinks=None, zero_padding=False):
     """Launch ``workers`` persistent CTAs over their claim tables
     (``device.persistent.ClaimTables``: built on the card, or numpy and
     uploaded here, with ``lengths``)."""
     from repro_torch.device.persistent import on_device
 
-    B, H, Hkv, Tq, Tk, D = check_kernel_inputs(
-        q, k, v, blk_q, blk_k, "flash_attention_persistent")
+    B, H, Hkv, Tq, Tk, D, Dv = check_kernel_inputs(
+        q, k, v, blk_q, blk_k, "flash_attention_persistent", wide=True, window=window,
+        sinks=sinks)
     dev = q.device
     tables = on_device((nclaims, first, starts, sizes, lengths), dev)
     W, S = len(nclaims), tuple(tables[2].shape)
     for name, t, shape in zip(("nclaims", "first", "starts", "sizes", "lengths"), tables,
                               ((W,), (W,), S, S, (B,))):
         _build.require_cuda(t, name, torch.int32, shape)
-    out = torch.empty_like(q)
+    if sinks is not None:
+        _build.require_cuda(sinks, "sinks", torch.float32, (H,))
+    out = torch.empty((B, H, Tq, Dv), dtype=q.dtype, device=dev)
     c_int, c_float, c_ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
     fn = _build.function("flash_attention", "repro_flash_attention_persistent",
                          c_int, c_int, *([c_ptr] * 4), c_int,
-                         *([c_ptr] * 5), *([c_int] * 10), c_float, c_ptr)
+                         *([c_ptr] * 6), *([c_int] * 14), c_float, c_ptr)
     err = fn(dev.index, DTYPE_CODE[q.dtype], *(_build.ptr(t) for t in tables[:4]), W,
              _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(tables[4]),
-             _build.ptr(out), B, H, Hkv, Tq, Tk, D, -(-Tq // blk_q), blk_q, blk_k,
-             int(causal), float(scale), _build.stream_of(q))
+             None if sinks is None else _build.ptr(sinks), _build.ptr(out),
+             B, H, Hkv, Tq, Tk, D, Dv, -(-Tq // blk_q), blk_q, blk_k, int(causal),
+             int(window is not None), int(window or 0), int(zero_padding),
+             float(scale), _build.stream_of(q))
     _build.check(err, "flash attention persistent kernel")
-    _build.LAUNCHES["flash_attention_persistent"] += 1
+    _build.LAUNCHES[LAUNCH_KEYS[window is not None] if wide_heads(q.dtype, D, Dv)
+                    else "flash_attention_persistent"] += 1
     return out
+
+
+def _valid_lengths(lengths, B: int, Tk: int) -> np.ndarray:
+    """``lengths`` as (B,) int32 in [0, Tk]; all Tk when None."""
+    if lengths is None:
+        return np.full(B, Tk, np.int32)
+    lengths = np.asarray(lengths, np.int32)
+    if lengths.shape != (B,):
+        raise ValueError(f"lengths must have shape ({B},), got {lengths.shape}")
+    if ((lengths < 0) | (lengths > Tk)).any():
+        raise ValueError(f"lengths must lie in [0, Tk={Tk}], got {lengths.tolist()}")
+    return lengths
+
+
+def _launch(q, k, v, *, lengths, causal, window, sinks, zero_padding, scale, blk_q, blk_k,
+            technique, workers, chunk, costs, schedule, device, kv_blocks=None):
+    """One layer's claim and persistent launch, inside the caller's span
+    ``repro_torch.flash_attention_persistent``; returns ``(out, finish)``,
+    ``finish()`` giving the schedule.  The span counts ``window`` (0 without
+    one) and, where the costs are the kv-block model (``kv_blocks``, or the
+    default computed here), ``kv_blocks``: the blocks the walk visits."""
+    from repro_torch.device.persistent import persistent_tables
+
+    refuse_grad((q, k, v), "flash_attention_persistent")
+    q, k, v = placed((q, k, v), device, "flash_attention_persistent")
+    B, H, Tq, D = q.shape
+    _, Hkv, Tk, _ = k.shape
+    if Hkv == 0 or H % Hkv:
+        raise ValueError(f"GQA requires H={H} divisible by Hkv={Hkv}")
+    if tuple(v.shape[:3]) != (B, Hkv, Tk):
+        raise ValueError(f"v must have shape ({B}, {Hkv}, {Tk}, Dv), got {tuple(v.shape)}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be a positive number of keys, got {window}")
+    if sinks is not None:
+        sinks = torch.as_tensor(sinks, dtype=torch.float32, device=q.device)
+        if sinks.shape != (H,):
+            raise ValueError(f"sinks must have shape ({H},), got {tuple(sinks.shape)}")
+    scale = (D ** -0.5) if scale is None else scale
+    nq = -(-Tq // blk_q)
+    lengths = _valid_lengths(lengths, B, Tk)
+
+    N = B * H * nq
+    if schedule is None and costs is None:
+        with span("repro_torch.varlen_tile_costs"):
+            costs = varlen_tile_costs(lengths, H, nq, blk_q, blk_k, causal, window,
+                                      zero_padding)
+        kv_blocks = int(costs.sum())
+    count("window", int(window or 0))
+    if kv_blocks is not None:
+        count("kv_blocks", kv_blocks)
+    tables, finish = persistent_tables(technique, N, workers, chunk=chunk, costs=costs,
+                                       schedule=schedule, device=q.device)
+    run = _persistent_plain if q.device.type == "cpu" else _persistent_cuda
+    out = run(*tables, q, k, v, lengths, causal=causal, scale=scale, blk_q=blk_q,
+              blk_k=blk_k, window=window, sinks=sinks, zero_padding=zero_padding)
+    return out, finish
 
 
 def flash_attention_persistent(
     q,  # (B, H, Tq, D)
     k,  # (B, Hkv, Tk, D)
-    v,  # (B, Hkv, Tk, D)
+    v,  # (B, Hkv, Tk, Dv)
     *,
     lengths=None,
     causal: bool = True,
+    window=None,
+    sinks=None,
     scale: float | None = None,
     blk_q: int = 128,
     blk_k: int = 128,
@@ -159,42 +257,65 @@ def flash_attention_persistent(
     schedule=None,
     device=None,
 ):
-    """Self-scheduled attention; returns ``(out, DeviceSchedule)``.
+    """Self-scheduled attention; returns ``(out (B, H, Tq, Dv), DeviceSchedule)``.
 
     ``lengths`` (B,) caps each batch row's kv extent (default: full Tk).
-    ``costs`` defaults to the varlen kv-block count per tile; pass
-    ``schedule`` to reuse a previous claim run on the same tile space.
-    Runs where ``flash_attention`` would (``device``, else q's device,
-    else ``"cuda"``): the protocol and persistent kernels on CUDA, their
-    plain versions on the CPU.  Not differentiable (``ops.refuse_grad``).
+    ``window``: key j is seen by row i only if i - window < j (with
+    ``causal``, j <= i too).  ``sinks`` (H,): a logit per query head, not
+    scaled, in every row's softmax denominator (e^b + sum_j e^(s_ij)) and
+    adding no value.  Rows at or past ``lengths[b]`` attend the row's keys
+    as any row does (``hybrid_attention_persistent`` zeroes them instead).
+    ``costs`` defaults to the kv-block count per tile; pass ``schedule`` to
+    reuse a previous claim run on the same tile space.  Runs where
+    ``flash_attention`` would (``device``, else q's device, else
+    ``"cuda"``): the protocol and persistent kernels on CUDA (the instances
+    the module docstring names), their plain versions on the CPU.  Not
+    differentiable (``ops.refuse_grad``).
     """
-    from repro_torch.device.persistent import persistent_tables
-
     with span("repro_torch.flash_attention_persistent"):
-        refuse_grad((q, k, v), "flash_attention_persistent")
-        q, k, v = placed((q, k, v), device, "flash_attention_persistent")
-        B, H, Tq, D = q.shape
-        _, Hkv, Tk, _ = k.shape
-        if Hkv == 0 or H % Hkv:
-            raise ValueError(f"GQA requires H={H} divisible by Hkv={Hkv}")
-        scale = (D ** -0.5) if scale is None else scale
-        nq = -(-Tq // blk_q)
-
-        if lengths is None:
-            lengths = np.full(B, Tk, np.int32)
-        lengths = np.asarray(lengths, np.int32)
-        if lengths.shape != (B,):
-            raise ValueError(f"lengths must have shape ({B},), got {lengths.shape}")
-        if ((lengths < 0) | (lengths > Tk)).any():
-            raise ValueError(f"lengths must lie in [0, Tk={Tk}], got {lengths.tolist()}")
-
-        N = B * H * nq
-        if schedule is None and costs is None:
-            with span("repro_torch.varlen_tile_costs"):
-                costs = varlen_tile_costs(lengths, H, nq, blk_q, blk_k, causal)
-        tables, finish = persistent_tables(technique, N, workers, chunk=chunk, costs=costs,
-                                           schedule=schedule, device=q.device)
-        run = _persistent_plain if q.device.type == "cpu" else _persistent_cuda
-        out = run(*tables, q, k, v, lengths, causal=causal, scale=scale, blk_q=blk_q,
-                  blk_k=blk_k)
+        out, finish = _launch(q, k, v, lengths=lengths, causal=causal, window=window,
+                              sinks=sinks, zero_padding=False, scale=scale, blk_q=blk_q,
+                              blk_k=blk_k, technique=technique, workers=workers, chunk=chunk,
+                              costs=costs, schedule=schedule, device=device)
         return out, finish()
+
+
+def hybrid_attention_persistent(layers, *, lengths=None, blk_q: int = 128, blk_k: int = 128,
+                                technique: str = "gss", workers: int = 4, device=None):
+    """One forward's causal prefill attention over a stack of layers, each
+    a self-scheduled loop; returns ``[(out, DeviceSchedule)]``, a layer each.
+
+    ``layers``: ``(q, k, v, window, sinks)`` a layer, in order, as
+    ``flash_attention_persistent`` takes them (``window`` and ``sinks`` may
+    be None: a full layer).  Every layer's batch shares ``lengths`` (B,), and
+    rows at or past them are padding: they read zero, and a tile wholly past
+    its row's length walks nothing and costs nothing.  The cost model runs
+    once a layer kind (heads, q blocks and window), in span
+    ``repro_torch.varlen_tile_costs``; each layer then claims its own
+    schedule and launches its kernel, all enqueued before the first
+    schedule is read back.  One root span, ``repro_torch.
+    hybrid_attention_persistent``, holds each layer's
+    ``repro_torch.flash_attention_persistent``.
+    """
+    with span("repro_torch.hybrid_attention_persistent"):
+        layers = list(layers)
+        if not layers:
+            raise ValueError("hybrid_attention_persistent needs at least one layer")
+        B, Tk = layers[0][1].shape[0], layers[0][1].shape[2]
+        lengths = _valid_lengths(lengths, B, Tk)
+        costs, launched = {}, []
+        for q, k, v, window, sinks in layers:
+            H, nq = q.shape[1], -(-q.shape[2] // blk_q)
+            kind = (H, nq, window)
+            if kind not in costs:
+                with span("repro_torch.varlen_tile_costs"):
+                    c = varlen_tile_costs(lengths, H, nq, blk_q, blk_k, True, window,
+                                          zero_padding=True)
+                costs[kind] = c, int(c.sum())
+            with span("repro_torch.flash_attention_persistent"):
+                launched.append(_launch(
+                    q, k, v, lengths=lengths, causal=True, window=window, sinks=sinks,
+                    zero_padding=True, scale=None, blk_q=blk_q, blk_k=blk_k,
+                    technique=technique, workers=workers, chunk=1, costs=costs[kind][0],
+                    schedule=None, device=device, kv_blocks=costs[kind][1]))
+        return [(out, finish()) for out, finish in launched]

@@ -387,8 +387,8 @@ def test_persistent_kernel_bf16_matches_plain(causal, blk_q, D):
 # attend over more than one stage)
 PLANTED = {
     "log2e_dropped": ("const float c = a.scale * kLog2e;", "const float c = a.scale;"),
-    "interior_pv_skipped": ("wgmma_pv<DP>(o, pa[kk], ",
-                            "if (!interior || it != 1) wgmma_pv<DP>(o, pa[kk], "),
+    "interior_pv_skipped": ("wgmma_pv<DV>(o, pa[kk], ",
+                            "if (!interior || it != 1) wgmma_pv<DV>(o, pa[kk], "),
     "interior_scale_off": ("uint64_t keep = ~0ull;",
                            "uint64_t keep = ~0ull;\n"
                            "if (interior) for (int i = 0; i < kKeys / 2; ++i) sc[i] *= 1.05f;"),

@@ -14,7 +14,8 @@ from repro_torch import spans
 from repro_torch.core.chunk_calculus import max_steps_bound
 from repro_torch.device.chunk_calculus import host_spec
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.persistent import flash_attention_persistent
+from repro_torch.kernels.flash_attention.persistent import (
+    flash_attention_persistent, varlen_tile_costs)
 from repro_torch.kernels.mandelbrot.persistent import mandelbrot_persistent
 
 ROOTS = {"mandelbrot": "repro_torch.mandelbrot_persistent",
@@ -88,8 +89,11 @@ def test_on_the_drain_records_its_root_and_children(entry):
         up = by_name[CHILDREN[r.name] or ROOTS[entry]]
         assert r.parent == up.index
         assert up.start_ns <= r.start_ns <= r.end_ns <= up.end_ns
-    # the CPU path copies nothing
-    assert all(r.counts == {} for r in recs)
+    # the CPU path copies nothing; the attention layer counts its window
+    # (none) and the kv blocks its walk visits
+    counted = {ROOTS["attention"]: {
+        "window": 0, "kv_blocks": int(varlen_tile_costs([30, 48], 4, 3, 16, 16).sum())}}
+    assert all(r.counts == counted.get(r.name, {}) for r in recs)
 
 
 @pytest.mark.parametrize("entry", sorted(ROOTS))
