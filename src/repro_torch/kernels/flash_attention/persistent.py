@@ -50,23 +50,21 @@ def varlen_tile_costs(lengths, H: int, nq: int, blk_q: int, blk_k: int,
     With ``window`` the walk starts at the block of key q_start - window + 1;
     with ``zero_padding`` a tile wholly at or past its row's length walks
     nothing.
+
+    A tile's cost depends on its batch row and q-block alone, so it is
+    computed once over the (B, nq) grid and repeated over the heads.
     """
     lengths = np.asarray(lengths, np.int64)
     B = len(lengths)
-    costs = np.zeros(B * H * nq, np.float64)
-    for tile in range(B * H * nq):
-        b = tile // (H * nq)
-        qi = tile % nq
-        limit = min(lengths[b], (qi + 1) * blk_q) if causal else lengths[b]
-        costs[tile] = max(-(-int(limit) // blk_k), 0)
-    if window is not None or zero_padding:
-        tiles = costs.reshape(B, H, nq)
-        q_start = np.arange(nq) * blk_q
-        if window is not None:
-            tiles[:] = np.maximum(tiles - np.maximum(q_start - window + 1, 0) // blk_k, 0)
-        if zero_padding:
-            tiles *= (q_start < lengths[:, None])[:, None]
-    return costs
+    q_start = np.arange(nq, dtype=np.int64) * blk_q
+    limit = (np.minimum(lengths[:, None], q_start + blk_q) if causal
+             else np.broadcast_to(lengths[:, None], (B, nq)))
+    grid = np.maximum(-(-limit // blk_k), 0).astype(np.float64)
+    if window is not None:
+        grid = np.maximum(grid - np.maximum(q_start - window + 1, 0) // blk_k, 0)
+    if zero_padding:
+        grid *= q_start < lengths[:, None]
+    return np.repeat(grid[:, None, :], H, axis=1).reshape(B * H * nq)
 
 
 def _claimed_tiles(nclaims, first, starts, sizes) -> np.ndarray:

@@ -10,15 +10,44 @@ keys' terms, and the sink adds no value:
 
 v has a head dim of its own.  Rows at or past L_b are padding and have no
 answer.  float32 with TF32 off, ``rows`` query rows at a time over only the
-keys they can see.  Plain torch only: it imports nothing of the program and
-nothing of JAX.  The benchmark keeps its own copy
+keys they can see.  Plain torch and numpy: it imports nothing of the program
+and nothing of JAX.  The benchmark keeps its own copy
 (``loopbench/reference/hybrid_attention.py``).
+
+``tile_costs_loop`` is the plain cost model: the kv blocks each (batch*head,
+q-block) tile walks, one tile at a time.
 """
 from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
+
+
+def tile_costs_loop(lengths, H, nq, blk_q, blk_k, causal=True, window=None,
+                    zero_padding=False):
+    """kv blocks per tile, row-major over ``B*H*nq`` tiles, float64: a tile
+    walks the blocks up to ceil(limit / blk_k), limit the row's length (and,
+    causal, the tile's last q row + 1); with ``window`` from the block of
+    key q_start - window + 1; with ``zero_padding`` nothing when the tile
+    starts at or past its row's length."""
+    lengths = np.asarray(lengths, np.int64)
+    B = len(lengths)
+    costs = np.zeros(B * H * nq, np.float64)
+    for tile in range(B * H * nq):
+        b = tile // (H * nq)
+        qi = tile % nq
+        limit = min(lengths[b], (qi + 1) * blk_q) if causal else lengths[b]
+        costs[tile] = max(-(-int(limit) // blk_k), 0)
+    if window is not None or zero_padding:
+        tiles = costs.reshape(B, H, nq)
+        q_start = np.arange(nq) * blk_q
+        if window is not None:
+            tiles[:] = np.maximum(tiles - np.maximum(q_start - window + 1, 0) // blk_k, 0)
+        if zero_padding:
+            tiles *= (q_start < lengths[:, None])[:, None]
+    return costs
 
 
 @contextlib.contextmanager

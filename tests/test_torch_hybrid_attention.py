@@ -27,7 +27,7 @@ from repro_torch.kernels.flash_attention.persistent import (
     _persistent_plain, flash_attention_persistent, hybrid_attention_persistent,
     varlen_tile_costs)
 
-from _hybrid_attention_ref import varlen_attention
+from _hybrid_attention_ref import tile_costs_loop, varlen_attention
 from _torch_support import require_card
 from _torch_support import one_torch_thread  # noqa: F401 (an autouse fixture)
 
@@ -140,6 +140,51 @@ def test_windowed_costs_count_the_walk(seed, zero_padding):
         assert (got >= np.array(want)).all()
     assert np.array_equal(varlen_tile_costs(lengths, Hn, nq, blk_q, blk_k, True, Tn + blk_q),
                           varlen_tile_costs(lengths, Hn, nq, blk_q, blk_k, True))
+
+
+COST_TK = 300
+COST_WINDOWS = {"none": lambda blk_k: None, "1": lambda blk_k: 1,
+                "blk_k-1": lambda blk_k: blk_k - 1, "blk_k": lambda blk_k: blk_k,
+                "blk_k+1": lambda blk_k: blk_k + 1, "past_Tk": lambda blk_k: COST_TK + 77}
+
+
+def _cost_lengths(seed, Bn=6):
+    """Seeded lengths in [0, COST_TK], one of them 0 and one COST_TK."""
+    lengths = np.random.default_rng(seed).integers(0, COST_TK + 1, Bn)
+    lengths[[1, 4]] = 0, COST_TK
+    return lengths
+
+
+@pytest.mark.parametrize("Hn", [1, 3])
+@pytest.mark.parametrize("blk_q,blk_k", [(128, 128), (64, 128), (128, 64)])
+@pytest.mark.parametrize("zero_padding", [False, True])
+@pytest.mark.parametrize("window", sorted(COST_WINDOWS))
+@pytest.mark.parametrize("causal", [True, False])
+def test_tile_costs_equal_the_per_tile_loop(causal, window, zero_padding, blk_q, blk_k, Hn):
+    """The closed form over (batch, q-block) gives the per-tile loop's
+    bytes: float64, one cost a tile, nq * blk_q past the keys' end."""
+    w = COST_WINDOWS[window](blk_k)
+    lengths = _cost_lengths(blk_q + 7 * blk_k + Hn)
+    nq = -(-COST_TK // blk_q) + 1
+    got = varlen_tile_costs(lengths, Hn, nq, blk_q, blk_k, causal, w, zero_padding)
+    want = tile_costs_loop(lengths, Hn, nq, blk_q, blk_k, causal, w, zero_padding)
+    assert got.dtype == np.float64 and got.shape == (len(lengths) * Hn * nq,)
+    assert np.array_equal(got, want) and got.tobytes() == want.tobytes()
+
+
+def test_tile_costs_are_a_fresh_buffer_each_call():
+    """Each call returns its own writable, contiguous array: writing into
+    one call's costs leaves another's, and the lengths, as they were."""
+    lengths = _cost_lengths(0)
+    nq = -(-COST_TK // 64)
+    a = varlen_tile_costs(lengths, 3, nq, 64, 64, True, 65, True)
+    b = varlen_tile_costs(lengths, 3, nq, 64, 64, True, 65, True)
+    assert a.flags.writeable and a.flags.c_contiguous
+    assert not np.shares_memory(a, b) and not np.shares_memory(a, lengths)
+    want, kept = b.copy(), lengths.copy()
+    a[:] = -1.0
+    assert np.array_equal(b, want) and np.array_equal(lengths, kept)
+    assert np.array_equal(varlen_tile_costs(lengths, 3, nq, 64, 64, True, 65, True), want)
 
 
 def _stack(device="cpu", dtype=torch.float32, D=192, Dv=128, Hn=H, Tn=T, Bn=B, window=WINDOW):
