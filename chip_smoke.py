@@ -13,11 +13,8 @@ protocol and applications through the port's public entry points:
      tiles of a 4096x4096 Mandelbrot image (CT 2000) with the tiles'
      escape-iteration costs, plus the GSS boundary case (N=513, P=3) drained
      both by the protocol kernel and by host claims through the window's
-     fetch-add kernel (each of the path's protocol launches is then timed
-     alone, from fresh counters: device time under ``torch.profiler``,
-     CUDA-event time per wrapper call and host time per ``claim_schedule``
-     call, beside the chain floor of a grant and the latency bound it sets;
-     ``repro_torch.device.protocol_timing``);
+     fetch-add kernel (the gss launch is then timed from fresh counters,
+     CUDA-event time per wrapper call, as every other row);
   3. the static Mandelbrot kernel at 4096x4096, CT 2000;
   4. the persistent Mandelbrot kernel over the gss, fac2 and ss schedules
      passed in (host-built claim tables) and claimed by the entry itself
@@ -375,16 +372,24 @@ def worker_times(schedule, run):
     import numpy as np
     import torch
 
-    nclaims, *flat = schedule.tables()
-    flat = [torch.from_numpy(a).cuda() for a in flat]  # first, starts, sizes
+    nclaims, *flat = card_tables(schedule, torch.device("cuda", 0))
     run(nclaims, *flat)
     times = []
     for w in range(len(nclaims)):
-        only = np.zeros_like(nclaims)
+        only = torch.zeros_like(nclaims)
         only[w] = nclaims[w]
-        nc = torch.from_numpy(only).cuda()
-        times.append(cuda_ms(lambda: run(nc, *flat), reps=1, warmup=False))
+        times.append(cuda_ms(lambda: run(only, *flat), reps=1, warmup=False))
     return np.array(times)
+
+
+def card_tables(schedule, dev):
+    """``schedule``'s claim tables on the card, by the entries' own route
+    (``persistent_tables`` with the schedule passed in: built on the host,
+    uploaded)."""
+    from repro_torch.device.persistent import persistent_tables
+
+    return persistent_tables(schedule.technique, schedule.N, schedule.P, schedule=schedule,
+                             device=dev)[0]
 
 
 def card_tables_error(card, schedule) -> int:
@@ -552,8 +557,7 @@ def protocol_sass() -> None:
 
     for n, info in sorted(ptxas_report(_build.BUILD_LOGS.get("protocol", "")).items()):
         inst = re.search(r"protocol_kernelILi(\d+)E", n)
-        name = f"protocol_kernel<{inst.group(1)}>" if inst else (
-            "chain_floor_kernel" if "chain_floor" in n else n)
+        name = f"protocol_kernel<{inst.group(1)}>" if inst else n
         print(f"ptxas {name}: {info}")
 
 
@@ -718,7 +722,8 @@ def attention_path(dev, P: int, static_launches: int):
           f"bf16 inputs {wide!r} (slack {slack32!r})")
 
     # times: bf16 (the model's type) in the rows, f32 printed beside them
-    def persistent_ms(tables, args):
+    def persistent_ms(sched, args):
+        tables = card_tables(sched, dev)
         return cuda_ms(lambda: _persistent_cuda(*tables, *args, lengths, causal=True,
                                                 scale=scale, blk_q=blk, blk_k=blk))
 
@@ -739,11 +744,12 @@ def attention_path(dev, P: int, static_launches: int):
         print(f"time flash_attention {dt} B={B}: {ms!r} ms "
               f"({4 * D * pairs / ms / 1e9!r} TFLOP/s); plain {plain!r} ms; "
               f"sdpa {lib!r} ms; bound {b_static[0]!r} ms ({b_static[1]})")
-        tables = sched16.tables() if dt == "bf16" else pers["gss"][1].tables()
+        sched = sched16 if dt == "bf16" else pers["gss"][1]
+        tables = sched.tables()
         for t in PERSISTENT_TECHNIQUES:
             print(f"time flash_attention_persistent {dt} over the {t} schedule: "
-                  f"{persistent_ms(pers[t][1].tables(), (lq, lk, lv))!r} ms")
-        p_ms = persistent_ms(tables, (lq, lk, lv))
+                  f"{persistent_ms(pers[t][1], (lq, lk, lv))!r} ms")
+        p_ms = persistent_ms(sched, (lq, lk, lv))
         p_plain = cuda_ms(lambda: _persistent_plain(
             *tables, lq, lk, lv, lengths, causal=True, scale=scale, blk_q=blk, blk_k=blk))
         p_static = cuda_ms(lambda: flash_attention(lq, lk, lv, causal=True, **blocks))
@@ -788,7 +794,6 @@ def hybrid_path(dev, P: int):
     import torch
 
     from loopbench.reference import hybrid_attention as ref
-    from repro_torch.device.persistent import on_device
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention.persistent import (
         LAUNCH_KEYS, _persistent_cuda, _persistent_plain, hybrid_attention_persistent)
@@ -846,10 +851,10 @@ def hybrid_path(dev, P: int):
     for name, i in zip(LAUNCH_KEYS, (0, 1)):  # the full layer, the first SWA layer
         q, k, v, window, sinks = layers[i]
         tables = got[i][1].tables()
-        args = on_device((*tables, lengths), dev)
+        card = card_tables(got[i][1], dev)
         kw = {"causal": True, "scale": scale, "blk_q": blk, "blk_k": blk, "window": window,
               "sinks": sinks, "zero_padding": True}
-        ms = cuda_ms(lambda: _persistent_cuda(*args[:4], q, k, v, args[4], **kw))
+        ms = cuda_ms(lambda: _persistent_cuda(*card, q, k, v, lengths, **kw))
         plain = cuda_ms(lambda: _persistent_plain(*tables, q, k, v, lengths, **kw),
                         reps=1, warmup=False)
         w = ref.layer_work(lengths, H, k.shape[1], D, Dv, window, q.element_size())
@@ -3145,9 +3150,8 @@ def main() -> int:
     from repro_torch.core.chunk_calculus import max_steps_bound, plan
     from repro_torch.device import claim_schedule, host_spec, slab_to_numpy
     from repro_torch.device.persistent import (
-        _RANK_CHUNK as RANK_CHUNK, _claim_loop_plain, cost_prefix_sum, launch_claim)
-    from repro_torch.device.protocol_timing import (
-        chain_floor, main_path_cases, protocol_times)
+        _RANK_CHUNK as RANK_CHUNK, _claim_loop_cuda, _claim_loop_plain, cost_prefix_sum,
+        launch_claim)
     from repro_torch.device.window import fetch_add_slab
     from repro_torch.kernels import (
         _build, mandelbrot, mandelbrot_persistent, mandelbrot_ref, spin_images,
@@ -3341,60 +3345,33 @@ def main() -> int:
         cuda_ms(lambda: fetch_add_slab(wslab, 0, 1)),
         host_ms(lambda: fetch_add_slab(cslab, 0, 1)), 12, 1, "host CPU")
 
-    # protocol: every launch of the main path (phase 2's five drains and the
-    # gss (513, 3) one, then the persistent kernels' gss, fac2 and ss tables,
-    # claimed by claim_schedule and again by the entry itself),
-    # each from fresh counters, beside the latency bound: its granted steps
-    # times the chain floor, the least time an exact earliest-free walk
-    # spends on a grant (one warp-wide min, then the owner's compare and
-    # select; the owner's new clock is formed beside the min)
+    # protocol: the gss launch of the main path, CUDA-event time per wrapper
+    # call, each call from fresh counters (two slots of one zeroed slab a call)
     protocol_sass()
-    floor = chain_floor()
-    print(f"chain floor: {floor['us_per_step']!r} us/step "
-          f"({floor['cycles_per_step']!r} cycles/step over {floor['steps']} steps)")
-    proto = {(r["technique"], r["N"], r["P"]): r
-             for r in protocol_times(main_path_cases(N, P), {N: costs})}
-    for (t, n_, p_), r in proto.items():
-        lat = r["steps"] * floor["us_per_step"] / 1e3
-        r["latency_bound_ms"] = lat
-        print(f"time protocol {t} N={n_} P={p_}: {r['steps']} steps, device "
-              f"{r['device_ms']!r} ms ({r['device_us_per_step']!r} us/step; "
-              f"{r['device_ms'] / lat!r}x the latency bound {lat!r} ms); "
-              f"{r['event_ms']!r} ms per wrapper call back to back; "
-              f"{r['call_ms']!r} ms per claim_schedule call")
-    main_launches = ([(t, N, P) for t in TECHNIQUES] + [("gss", 513, 3)]
-                     + [(t, N, P) for t in schedules] * 2)  # claim_schedule, the entry
-    check(len(main_launches) == launches["protocol"], "the main path's protocol launches")
-    main_sum = {k: sum(proto[c][k] for c in main_launches)
-                for k in ("device_ms", "event_ms", "call_ms", "latency_bound_ms")}
-    print(f"  protocol on the main path: {len(main_launches)} launches, device "
-          f"{main_sum['device_ms']!r} ms, per wrapper call {main_sum['event_ms']!r} ms, "
-          f"per claim_schedule call {main_sum['call_ms']!r} ms; latency bound "
-          f"{main_sum['latency_bound_ms']!r} ms")
-    gss = proto[("gss", N, P)]
+    # phase 2's drains and its gss (513, 3) one; claim_schedule's and the entry's
+    check(launches["protocol"] == len(TECHNIQUES) + 1 + 2 * len(schedules),
+          "the main path's protocol launches")
     spec = host_spec("gss", N, P)
     S = int(max_steps_bound(spec))
     kw = dict(technique="gss", N=N, P=P, chunk=1, max_chunk=None, S=S,
-              i_slot=0, lp_slot=1, i_bits=(2 * S).bit_length())
+              i_bits=(2 * S).bit_length())
     csum = cost_prefix_sum(costs, N)
+    csum_card = torch.from_numpy(csum).to(dev)
     n_steps = schedules["gss"].n_steps
-    check(gss["steps"] == n_steps, "timed gss launch == the main path's")
+    slab, calls = torch.zeros(2 * (REPS + 2), dtype=torch.int32, device=dev), []
+
+    def protocol_launch():  # the check's call, cuda_ms's warm-up and its REPS
+        calls.append(2 * len(calls))
+        return _claim_loop_cuda(slab, csum_card, i_slot=calls[-1], lp_slot=calls[-1] + 1,
+                                **kw)[0]
+
+    check(int((protocol_launch()[:, 1] >= 0).sum()) == n_steps,
+          "timed gss launch == the main path's")
     proto_plain = host_ms(lambda: _claim_loop_plain(
-        torch.zeros(2, dtype=torch.int32), torch.from_numpy(csum), **kw))
-    # ms: CUDA-event time per wrapper call, as the other rows; device_ms beside
+        torch.zeros(2, dtype=torch.int32), torch.from_numpy(csum), i_slot=0, lp_slot=1, **kw))
     row("protocol", "src/repro_torch/csrc/protocol.cu",
-        "src/repro/device/persistent.py:42", gss["event_ms"], proto_plain,
+        "src/repro/device/persistent.py:42", cuda_ms(protocol_launch), proto_plain,
         8 + 4 * (N + 1) + 16 * n_steps + 8 * P, n_steps * (P + 40), "host CPU")
-    rows[-1].update(
-        device_ms=gss["device_ms"], latency_bound_ms=gss["latency_bound_ms"],
-        chain_floor_us_per_step=floor["us_per_step"],
-        main_path_device_ms=main_sum["device_ms"], main_path_ms=main_sum["event_ms"],
-        main_path_call_ms=main_sum["call_ms"],
-        by_launch=[{k: proto[c][k] for k in ("technique", "N", "P", "steps", "device_ms",
-                                             "event_ms", "call_ms", "latency_bound_ms")}
-                   for c in main_launches])
-    print(f"  protocol's larger bound is latency: {n_steps} grants x the chain floor = "
-          f"{gss['latency_bound_ms']!r} ms (the bytes / operations bound above says nothing)")
 
     # The plain versions of the applications take seconds where the kernels
     # take milliseconds; each already ran once in its check above, so one
@@ -3440,7 +3417,7 @@ def main() -> int:
     # worker's modeled iterations on one SM's share of the f32 rate
     pers_ms, sched_bound = {}, {}
     for t in ("gss", "fac2", "ss"):
-        tables = schedules[t].tables()
+        tables = card_tables(schedules[t], dev)
         pers_ms[t] = cuda_ms(lambda: run_persistent(*tables))
         iters = worker_iterations(schedules[t], costs)
         sched_bound[t] = MANDEL_OPS_PER_ITER * float(iters.max()) / (F32_OPS_PER_S / P) * 1e3

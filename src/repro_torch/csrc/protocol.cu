@@ -17,8 +17,7 @@
 // parallel.  Only the earliest-free-worker walk is a chain: a grant needs the
 // argmin of the clocks that the grant before it left.  The least such chain
 // is one warp-wide min (redux.sync) and the owner's compare and select a
-// grant, the owner's new clock formed beside the min;
-// `repro_protocol_chain_floor` below measures it.
+// grant, the owner's new clock formed beside the min.
 //
 // Design, one CTA of kThreads threads:
 //   1. Prologue, the whole CTA, kThreads steps at a time.  Each thread takes
@@ -439,27 +438,6 @@ claim_tables_kernel(const int* sched, const int* rank, const int* offsets, int* 
     }
 }
 
-// The least chain of a grant that an exact earliest-free walk makes: one
-// warp-wide min (redux.sync), then the owner's compare and select, then the
-// next min.  The value the owner takes is formed beside the min, as the walk
-// forms its sum, so no add is on the chain.  Lane l starts at key l and takes
-// key + 32 whenever it holds the least, so the lanes take turns; the loop is
-// unrolled by 32 as the walk's is.  `cycles` gets the loop's clock64 span.
-__global__ void chain_floor_kernel(int steps, unsigned* keys, long long* cycles) {
-    unsigned key = threadIdx.x;
-    const long long t0 = clock64();
-    for (int s = 0; s < steps; s += 32) {
-#pragma unroll
-        for (int t = 0; t < 32; ++t) {
-            const unsigned grown = key + 32u;
-            key = key == __reduce_min_sync(kFullMask, key) ? grown : key;
-        }
-    }
-    const long long t1 = clock64();
-    keys[threadIdx.x] = key;
-    if (threadIdx.x == 0) *cycles = t1 - t0;
-}
-
 }  // namespace
 
 extern "C" int repro_protocol_launch(
@@ -517,16 +495,5 @@ extern "C" int repro_claim_tables_launch(int device, void* sched, void* counts, 
                                             kTableBlocks));
     claim_tables_kernel<<<blocks, kTableThreads, 0, st>>>(
         rows, rank, offsets, static_cast<int*>(starts), static_cast<int*>(sizes), P, S, chunk);
-    return static_cast<int>(cudaGetLastError());
-}
-
-// `steps` must be a multiple of 32; `keys` gets each lane's last key (32 u32).
-extern "C" int repro_protocol_chain_floor(int device, int steps, void* keys,
-                                          void* cycles, void* stream) {
-    if (steps % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
-    const DeviceGuard guard(device);
-    if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
-    chain_floor_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-        steps, static_cast<unsigned*>(keys), static_cast<long long*>(cycles));
     return static_cast<int>(cudaGetLastError());
 }

@@ -41,7 +41,7 @@ layout (``ClaimTables``); the self-scheduled entries get them from
 (``PendingClaim.tables``, the table kernels of ``csrc/protocol.cu``), the
 compute kernel follows on the same stream, and the schedule is read back
 last.  ``DeviceSchedule.tables`` builds them on the host for a schedule
-already read back.
+already read back, and ``persistent_tables`` uploads those for the card.
 """
 from __future__ import annotations
 
@@ -136,12 +136,31 @@ class ClaimTables(NamedTuple):
     layout.  Built on the card (``PendingClaim.tables``: CUDA tensors,
     ``starts``/``sizes`` with the protocol's step bound S entries, the first
     ``nclaims.sum()`` written) or on the host (``DeviceSchedule.tables``:
-    numpy, uploaded by ``on_device``)."""
+    numpy); ``persistent_tables`` hands either to a kernel on its device."""
 
     nclaims: Any  # (P,) int32
     first: Any    # (P,) int32, the exclusive prefix of nclaims
     starts: Any   # (>= nclaims.sum(),) int32
     sizes: Any
+
+    def tiles(self) -> np.ndarray:
+        """Every claimed iteration (host tables), worker by worker, each
+        worker's claims in table order: what the plain versions run."""
+        nclaims, first, starts, sizes = (np.asarray(a, np.int64) for a in self)
+        n = int(nclaims.sum())
+        # the table rows of every worker's claims, worker by worker
+        rows = np.repeat(first - (np.cumsum(nclaims) - nclaims), nclaims) + np.arange(n)
+        st, sz = starts[rows], sizes[rows]
+        return np.repeat(st - (np.cumsum(sz) - sz), sz) + np.arange(int(sz.sum()))
+
+    def require_cuda(self) -> int:
+        """Refuse tables a compute kernel cannot read (not CUDA int32,
+        not contiguous, or of shapes that disagree); returns the worker
+        count, ``len(nclaims)``."""
+        W, S = len(self.nclaims), tuple(self.starts.shape)
+        for name, t, shape in zip(self._fields, self, ((W,), (W,), S, S)):
+            _build.require_cuda(t, name, torch.int32, shape)
+        return W
 
 
 class PendingClaim:
@@ -369,7 +388,8 @@ def persistent_tables(technique: str, N: int, P: int, *, chunk: int = 1, costs=N
                       device: torch.device,
                       what: str = "tile space") -> Tuple[ClaimTables, Callable[[], DeviceSchedule]]:
     """The claim tables a persistent compute kernel over ``N`` iterations and
-    ``P`` workers reads, and ``finish()``, which returns the schedule.
+    ``P`` workers reads, on ``device``, and ``finish()``, which returns the
+    schedule.
 
     A schedule this call claims on the card: the protocol kernel, its copy
     back and the table kernels are enqueued on one stream, and the tables
@@ -378,7 +398,9 @@ def persistent_tables(technique: str, N: int, P: int, *, chunk: int = 1, costs=N
     schedule back and checks that it covers ``[0, N)``.  Otherwise (a
     ``schedule`` passed in, or a CPU ``device``) the schedule is claimed
     and checked first and its tables are built on the host
-    (``DeviceSchedule.tables``).  ``what`` names the tiles in errors.
+    (``DeviceSchedule.tables``): numpy for the CPU, uploaded for the card
+    in span ``repro_torch.tables_upload``.  ``what`` names the tiles in
+    errors.
     """
     if schedule is None and device.type != "cpu":
         with span("repro_torch.claim_schedule"):
@@ -399,6 +421,11 @@ def persistent_tables(technique: str, N: int, P: int, *, chunk: int = 1, costs=N
     _check_cover(schedule, N, what)
     with span("repro_torch.worker_lists"):
         tables = schedule.tables()
+    if device.type != "cpu":
+        with span("repro_torch.tables_upload"):
+            count("h2d_bytes", sum(a.nbytes for a in tables))
+            tables = ClaimTables(*(torch.from_numpy(a).to(device, non_blocking=True)
+                                   for a in tables))
     return tables, lambda: schedule
 
 
@@ -406,20 +433,6 @@ def _check_cover(schedule: DeviceSchedule, N: int, what: str) -> None:
     if int(schedule.sizes.sum()) != N:
         raise ValueError(f"schedule does not cover the {what} "
                          f"({int(schedule.sizes.sum())} of {N} tiles)")
-
-
-def on_device(arrays, device) -> list:
-    """``arrays`` as tensors on ``device``: numpy arrays are uploaded (not
-    waiting for the stream's kernels), in span ``repro_torch.tables_upload``
-    with their bytes counted; tensors are passed through."""
-    host = [a for a in arrays if not torch.is_tensor(a)]
-    if not host:
-        return list(arrays)
-    with span("repro_torch.tables_upload"):
-        count("h2d_bytes", sum(np.asarray(a).nbytes for a in host))
-        return [a if torch.is_tensor(a)
-                else torch.from_numpy(np.ascontiguousarray(a)).to(device, non_blocking=True)
-                for a in arrays]
 
 
 def schedule_timeline(schedule: DeviceSchedule, costs=None):

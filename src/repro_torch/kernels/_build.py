@@ -200,8 +200,8 @@ def target_device(device, what: str):
 
 def require_cuda(t, what: str, dtype, shape=None) -> None:
     """Validate a CUDA tensor handed to a kernel: dtype, shape, contiguity."""
-    if not t.is_cuda:
-        raise ValueError(f"{what} must be a CUDA tensor, got {t.device}")
+    if not getattr(t, "is_cuda", False):  # a host array too
+        raise ValueError(f"{what} must be a CUDA tensor, got {getattr(t, 'device', type(t))}")
     if t.dtype != dtype:
         raise ValueError(f"{what} must be {dtype}, got {t.dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):

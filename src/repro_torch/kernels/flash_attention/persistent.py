@@ -67,12 +67,14 @@ def varlen_tile_costs(lengths, H: int, nq: int, blk_q: int, blk_k: int,
     return np.repeat(grid[:, None, :], H, axis=1).reshape(B * H * nq)
 
 
-def _claimed_tiles(nclaims, first, starts, sizes) -> np.ndarray:
-    """Every tile of the claim tables, worker by worker, in table order."""
-    tiles = [np.arange(st, st + sz) for w in range(len(nclaims))
-             for st, sz in zip(starts[first[w]:first[w] + nclaims[w]],
-                               sizes[first[w]:first[w] + nclaims[w]])]
-    return np.concatenate(tiles)
+def _kv_block_costs(lengths, H: int, nq: int, blk_q: int, blk_k: int, causal: bool,
+                    window, zero_padding: bool):
+    """The kv-block cost model (``varlen_tile_costs``), in span
+    ``repro_torch.varlen_tile_costs``; returns ``(costs, kv_blocks)``, the
+    latter the blocks the layer's walk visits."""
+    with span("repro_torch.varlen_tile_costs"):
+        costs = varlen_tile_costs(lengths, H, nq, blk_q, blk_k, causal, window, zero_padding)
+    return costs, int(costs.sum())
 
 
 def _persistent_plain(nclaims, first, starts, sizes, q, k, v, lengths, *, causal,
@@ -85,6 +87,8 @@ def _persistent_plain(nclaims, first, starts, sizes, q, k, v, lengths, *, causal
     arithmetic of the kernel's tile body (q scaled before the dot; a sink
     starts a row's softmax at max b, sum 1).
     """
+    from repro_torch.device.persistent import ClaimTables
+
     B, H, Tq, D = q.shape
     _, Hkv, Tk, Dv = v.shape
     group = H // Hkv
@@ -100,7 +104,7 @@ def _persistent_plain(nclaims, first, starts, sizes, q, k, v, lengths, *, causal
     kp = kp.reshape(B * Hkv, nk, blk_k, D)
     vp = vp.reshape(B * Hkv, nk, blk_k, Dv)
 
-    tile = torch.as_tensor(_claimed_tiles(nclaims, first, starts, sizes), device=dev).long()
+    tile = torch.as_tensor(ClaimTables(nclaims, first, starts, sizes).tiles(), device=dev)
     bh = tile // nq
     qi = tile - bh * nq
     b = bh // H
@@ -148,19 +152,20 @@ def _persistent_plain(nclaims, first, starts, sizes, q, k, v, lengths, *, causal
 def _persistent_cuda(nclaims, first, starts, sizes, q, k, v, lengths, *, causal,
                      scale, blk_q, blk_k, window=None, sinks=None, zero_padding=False):
     """Launch ``workers`` persistent CTAs over their claim tables
-    (``device.persistent.ClaimTables``: built on the card, or numpy and
-    uploaded here, with ``lengths``)."""
-    from repro_torch.device.persistent import on_device
+    (``device.persistent.ClaimTables``, on the card); ``lengths`` (host) is
+    uploaded here."""
+    from repro_torch.device.persistent import ClaimTables
 
     B, H, Hkv, Tq, Tk, D, Dv = check_kernel_inputs(
         q, k, v, blk_q, blk_k, "flash_attention_persistent", wide=True, window=window,
         sinks=sinks)
     dev = q.device
-    tables = on_device((nclaims, first, starts, sizes, lengths), dev)
-    W, S = len(nclaims), tuple(tables[2].shape)
-    for name, t, shape in zip(("nclaims", "first", "starts", "sizes", "lengths"), tables,
-                              ((W,), (W,), S, S, (B,))):
-        _build.require_cuda(t, name, torch.int32, shape)
+    tables = ClaimTables(nclaims, first, starts, sizes)
+    W = tables.require_cuda()
+    with span("repro_torch.tables_upload"):
+        count("h2d_bytes", lengths.nbytes)
+        lengths = torch.from_numpy(lengths).to(dev, non_blocking=True)
+    _build.require_cuda(lengths, "lengths", torch.int32, (B,))
     if sinks is not None:
         _build.require_cuda(sinks, "sinks", torch.float32, (H,))
     out = torch.empty((B, H, Tq, Dv), dtype=q.dtype, device=dev)
@@ -168,8 +173,8 @@ def _persistent_cuda(nclaims, first, starts, sizes, q, k, v, lengths, *, causal,
     fn = _build.function("flash_attention", "repro_flash_attention_persistent",
                          c_int, c_int, *([c_ptr] * 4), c_int,
                          *([c_ptr] * 6), *([c_int] * 14), c_float, c_ptr)
-    err = fn(dev.index, DTYPE_CODE[q.dtype], *(_build.ptr(t) for t in tables[:4]), W,
-             _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(tables[4]),
+    err = fn(dev.index, DTYPE_CODE[q.dtype], *(_build.ptr(t) for t in tables), W,
+             _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(lengths),
              None if sinks is None else _build.ptr(sinks), _build.ptr(out),
              B, H, Hkv, Tq, Tk, D, Dv, -(-Tq // blk_q), blk_q, blk_k, int(causal),
              int(window is not None), int(window or 0), int(zero_padding),
@@ -193,12 +198,12 @@ def _valid_lengths(lengths, B: int, Tk: int) -> np.ndarray:
 
 
 def _launch(q, k, v, *, lengths, causal, window, sinks, zero_padding, scale, blk_q, blk_k,
-            technique, workers, chunk, costs, schedule, device, kv_blocks=None):
+            technique, workers, chunk, costs, schedule, device):
     """One layer's claim and persistent launch, inside the caller's span
     ``repro_torch.flash_attention_persistent``; returns ``(out, finish)``,
     ``finish()`` giving the schedule.  The span counts ``window`` (0 without
-    one) and, where the costs are the kv-block model (``kv_blocks``, or the
-    default computed here), ``kv_blocks``: the blocks the walk visits."""
+    one); a caller whose costs are the kv-block model (``_kv_block_costs``)
+    counts ``kv_blocks`` there too."""
     from repro_torch.device.persistent import persistent_tables
 
     refuse_grad((q, k, v), "flash_attention_persistent")
@@ -219,17 +224,9 @@ def _launch(q, k, v, *, lengths, causal, window, sinks, zero_padding, scale, blk
     nq = -(-Tq // blk_q)
     lengths = _valid_lengths(lengths, B, Tk)
 
-    N = B * H * nq
-    if schedule is None and costs is None:
-        with span("repro_torch.varlen_tile_costs"):
-            costs = varlen_tile_costs(lengths, H, nq, blk_q, blk_k, causal, window,
-                                      zero_padding)
-        kv_blocks = int(costs.sum())
     count("window", int(window or 0))
-    if kv_blocks is not None:
-        count("kv_blocks", kv_blocks)
-    tables, finish = persistent_tables(technique, N, workers, chunk=chunk, costs=costs,
-                                       schedule=schedule, device=q.device)
+    tables, finish = persistent_tables(technique, B * H * nq, workers, chunk=chunk,
+                                       costs=costs, schedule=schedule, device=q.device)
     run = _persistent_plain if q.device.type == "cpu" else _persistent_cuda
     out = run(*tables, q, k, v, lengths, causal=causal, scale=scale, blk_q=blk_q,
               blk_k=blk_k, window=window, sinks=sinks, zero_padding=zero_padding)
@@ -271,6 +268,12 @@ def flash_attention_persistent(
     differentiable (``ops.refuse_grad``).
     """
     with span("repro_torch.flash_attention_persistent"):
+        if costs is None and schedule is None:
+            B, H, Tq, _ = q.shape
+            costs, kv_blocks = _kv_block_costs(
+                _valid_lengths(lengths, B, k.shape[2]), H, -(-Tq // blk_q), blk_q, blk_k,
+                causal, window, False)
+            count("kv_blocks", kv_blocks)
         out, finish = _launch(q, k, v, lengths=lengths, causal=causal, window=window,
                               sinks=sinks, zero_padding=False, scale=scale, blk_q=blk_q,
                               blk_k=blk_k, technique=technique, workers=workers, chunk=chunk,
@@ -306,14 +309,13 @@ def hybrid_attention_persistent(layers, *, lengths=None, blk_q: int = 128, blk_k
             H, nq = q.shape[1], -(-q.shape[2] // blk_q)
             kind = (H, nq, window)
             if kind not in costs:
-                with span("repro_torch.varlen_tile_costs"):
-                    c = varlen_tile_costs(lengths, H, nq, blk_q, blk_k, True, window,
-                                          zero_padding=True)
-                costs[kind] = c, int(c.sum())
+                costs[kind] = _kv_block_costs(lengths, H, nq, blk_q, blk_k, True, window, True)
+            layer_costs, kv_blocks = costs[kind]
             with span("repro_torch.flash_attention_persistent"):
+                count("kv_blocks", kv_blocks)
                 launched.append(_launch(
                     q, k, v, lengths=lengths, causal=True, window=window, sinks=sinks,
                     zero_padding=True, scale=None, blk_q=blk_q, blk_k=blk_k,
-                    technique=technique, workers=workers, chunk=1, costs=costs[kind][0],
-                    schedule=None, device=device, kv_blocks=costs[kind][1]))
+                    technique=technique, workers=workers, chunk=1, costs=layer_costs,
+                    schedule=None, device=device))
         return [(out, finish()) for out, finish in launched]

@@ -8,7 +8,7 @@ loop runs in the protocol kernel, and the table kernels behind it build
 per-worker claim tables (variable-sized chunks of the linearized tile
 space) on the card; each CTA then walks its own table and writes its tiles
 into the shared counts image.  A schedule passed in is tabled on the host
-(``DeviceSchedule.tables``) and uploaded.
+and uploaded (``device.persistent.persistent_tables``).
 
 Pixel math is the one ``z4c_step`` iteration the static kernel runs too,
 so the two paths are exactly equal.  The persistent body tests for an
@@ -42,10 +42,10 @@ def _tile_pixels(tiles: torch.Tensor, gw: int, block_h: int, block_w: int):
 def _persistent_plain(nclaims, first, starts, sizes, *, width, height, ct, xlim, ylim,
                       block_h, block_w, gw, device):
     """The plain version: every worker's claimed tiles, in table order."""
-    tiles = [np.arange(st, st + sz) for w in range(len(nclaims))
-             for st, sz in zip(starts[first[w]:first[w] + nclaims[w]],
-                               sizes[first[w]:first[w] + nclaims[w]])]
-    tiles = torch.as_tensor(np.concatenate(tiles).astype(np.int32), device=device)
+    from repro_torch.device.persistent import ClaimTables
+
+    tiles = ClaimTables(nclaims, first, starts, sizes).tiles()
+    tiles = torch.as_tensor(tiles.astype(np.int32), device=device)
     rows, cols = _tile_pixels(tiles, gw, block_h, block_w)
     inside = (rows < height) & (cols < width)
     rows, cols = rows[inside], cols[inside]
@@ -59,15 +59,11 @@ def _persistent_plain(nclaims, first, starts, sizes, *, width, height, ct, xlim,
 def _persistent_cuda(nclaims, first, starts, sizes, *, width, height, ct, xlim, ylim,
                      block_h, block_w, gw, device):
     """Launch ``workers`` persistent CTAs over their claim tables
-    (``device.persistent.ClaimTables``: built on the card, or numpy and
-    uploaded here)."""
-    from repro_torch.device.persistent import on_device
+    (``device.persistent.ClaimTables``, on the card)."""
+    from repro_torch.device.persistent import ClaimTables
 
-    tables = on_device((nclaims, first, starts, sizes), device)
-    W, S = len(nclaims), tuple(tables[2].shape)
-    for name, t, shape in zip(("nclaims", "first", "starts", "sizes"), tables,
-                              ((W,), (W,), S, S)):
-        _build.require_cuda(t, name, torch.int32, shape)
+    tables = ClaimTables(nclaims, first, starts, sizes)
+    W = tables.require_cuda()
     out = torch.empty((height, width), dtype=torch.int32, device=device)
     xmin, dx, ymin, dy = geometry(width, height, xlim, ylim)
     c_int, c_float, c_ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p

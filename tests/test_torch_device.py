@@ -503,6 +503,37 @@ def test_worker_lists_equal_the_grant_loop():
             assert got.dtype == want.dtype and np.array_equal(got, want)
 
 
+@pytest.mark.parametrize("technique,slab", [
+    *((t, (0, 0)) for t in ("static", "ss", "gss", "tss", "fac2")),
+    ("gss", (5, 300)),     # resumed mid-loop: the claims cover [300, N)
+    ("fac2", (4, 800)),    # resumed past N: no claim, no tile
+])
+def test_table_tiles_equal_the_per_worker_walk(technique, slab):
+    """``ClaimTables.tiles()``, the tiles both plain compute versions run,
+    against the reference kernels' walk over ``worker_lists()``: worker by
+    worker, claim by claim, tile by tile."""
+    N, P = 777, 13
+    sched = tdev.claim_schedule(technique, N, P, costs=_costs("random", N), device="cpu",
+                                slab=torch.tensor(slab, dtype=torch.int32))
+    nclaims, starts, sizes = sched.worker_lists()
+    want = [st + t for w in range(P)
+            for st, sz in zip(starts[w, :nclaims[w]], sizes[w, :nclaims[w]])
+            for t in range(sz)]
+    got = sched.tables().tiles()
+    assert np.array_equal(got, np.asarray(want, np.int64).reshape(-1))
+    assert np.array_equal(np.sort(got), np.arange(slab[1], N))
+
+
+def test_host_tables_are_refused_by_the_card_check():
+    """The compute kernels' one check of their tables refuses host tables,
+    numpy or CPU tensors, with the ``ValueError`` of every other input: they
+    reach a kernel only through ``persistent_tables``."""
+    tables = tdev.claim_schedule("fac2", 100, 4, device="cpu").tables()
+    for t in (tables, tdev.persistent.ClaimTables(*map(torch.from_numpy, tables))):
+        with pytest.raises(ValueError, match="nclaims must be a CUDA tensor, got cpu"):
+            t.require_cuda()
+
+
 def test_clock_key_orders_like_floats():
     """Strictly in float order; -0.0 just below +0.0, which a clock never
     meets: clocks start at +0.0 and an f32 sum is -0.0 only for -0.0 + -0.0."""

@@ -193,6 +193,7 @@ def test_persistent_bodies_equal_static_and_are_timed(tmp_path):
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     from repro_torch.device import claim_schedule
+    from repro_torch.device.persistent import persistent_tables
     from repro_torch.kernels import mandelbrot
     from repro_torch.kernels.mandelbrot.persistent import (
         _persistent_cuda, mandelbrot_tile_costs)
@@ -223,7 +224,9 @@ def test_persistent_bodies_equal_static_and_are_timed(tmp_path):
     N = (cs.IMG // cs.TILE) ** 2
     image = mandelbrot(cs.IMG, ct=cs.CT)
     costs = mandelbrot_tile_costs(image, cs.TILE, cs.TILE)
-    tables = {t: claim_schedule(t, N, P, costs=costs).tables()
+    # host-built tables, uploaded by the entries' own route
+    tables = {t: persistent_tables(t, N, P, schedule=claim_schedule(t, N, P, costs=costs),
+                                   device=dev)[0]
               for t in ("gss", "ss", "fac2")}
     library = _build.library
 
