@@ -210,6 +210,7 @@ BF16_FLOPS_PER_S = 989e12
 TECHNIQUES = ("static", "ss", "gss", "tss", "fac2")
 IMG, CT, TILE = 4096, 2000, 64
 PIXELS = 1152  # the paper's image (arXiv:1901.02773, Fig. 5), one pixel an iteration
+PIXEL_CT = 1000  # ... and its iteration cap
 N_POINTS, N_IMAGES, IMG_W, SUPPORT, BIN = 800_000, 8192, 5, 2.0, 0.05
 # Mandelbrot: 13 f32 arithmetic operations and one compare per iteration
 # (|z|^2's two products are the next iteration's zr*zr and zi*zi); bounds
@@ -359,10 +360,11 @@ def worker_iterations(schedule, costs):
     counts of the tiles its claim table holds."""
     import numpy as np
 
-    nclaims, starts, sizes = schedule.worker_lists()
-    return np.array([sum(float(costs[s:s + z].sum())
-                         for s, z in zip(starts[w, :n], sizes[w, :n]))
-                     for w, n in enumerate(nclaims)])
+    nclaims, _, starts, sizes = schedule.tables()
+    csum = np.concatenate(([0.0], np.cumsum(costs, dtype=np.float64)))
+    owner = np.repeat(np.arange(len(nclaims)), nclaims)
+    return np.bincount(owner, weights=csum[starts + sizes] - csum[starts],
+                       minlength=len(nclaims))
 
 
 def worker_times(schedule, run):
@@ -3286,6 +3288,19 @@ def main() -> int:
     err["mandelbrot_persistent"] = float((pers_plain - persistent["gss"]).abs().max())
     print("mandelbrot persistent (gss, fac2, ss; passed in and claimed by the entry) "
           "== static exactly; == plain")
+    # the paper's loop, 1x1 tiles under ss: the kernel's packed path
+    pixel_image = mandelbrot(PIXELS, ct=PIXEL_CT)
+    pixel_costs = mandelbrot_tile_costs(pixel_image, 1, 1)
+    pixel_sched = claim_schedule("ss", PIXELS * PIXELS, P, costs=pixel_costs)
+    pixel_tables = card_tables(pixel_sched, dev)
+    pixel_kw = dict(width=PIXELS, height=PIXELS, ct=PIXEL_CT, xlim=(-2.0, 1.0),
+                    ylim=(-1.5, 1.5), block_h=1, block_w=1, gw=PIXELS, device=dev)
+    pixel_out = _persistent_cuda(*pixel_tables, **pixel_kw)
+    check(torch.equal(pixel_out, pixel_image), "persistent (ss, 1x1 tiles) == static exactly")
+    check(torch.equal(_persistent_plain(*pixel_sched.tables(), **pixel_kw), pixel_out),
+          "persistent (ss, 1x1 tiles) == plain")
+    print(f"mandelbrot persistent over {PIXELS}x{PIXELS} CT {PIXEL_CT} in 1x1 tiles (ss, "
+          f"{pixel_sched.n_steps} claims; packed onto lanes) == static exactly; == plain")
     # the card's claim tables against the host's, at the main path's shapes
     # and at the paper's one-pixel ss loop (1,327,104 grants, many rank chunks)
     table_cases = {t: (t, N, costs) for t in schedules}
@@ -3434,8 +3449,15 @@ def main() -> int:
             ylim=(-1.5, 1.5), block_h=TILE, block_w=TILE, gw=IMG // TILE,
             device=dev), **once),
         mb_bytes + 4 * (2 * P + 2 * tabs.starts.size), MANDEL_OPS_PER_ITER * sum_counts)
+    # the paper's loop (phase 4's pixel tables), beside its schedule-aware bound
+    pixel_ms = cuda_ms(lambda: _persistent_cuda(*pixel_tables, **pixel_kw))
+    pixel_bound = (MANDEL_OPS_PER_ITER * float(worker_iterations(pixel_sched, pixel_costs).max())
+                   / (F32_OPS_PER_S / P) * 1e3)
+    print(f"time mandelbrot_persistent over {PIXELS}x{PIXELS} pixels (ss, packed): "
+          f"{pixel_ms!r} ms; schedule-aware bound {pixel_bound!r} ms")
     rows[-1].update(ms_fac2=pers_ms["fac2"], ms_ss=pers_ms["ss"],
-                    schedule_bound_ms=sched_bound)
+                    schedule_bound_ms=sched_bound, ms_pixels_ss=pixel_ms,
+                    bound_ms_pixels_ss=pixel_bound)
 
     spin_ops = SPIN_OPS_PER_PAIR * pairs["pairs"] + SPIN_OPS_K_PAIR * pairs["k"]
     spin_bytes = 24 * N_POINTS + 4 * N_IMAGES * IMG_W * IMG_W

@@ -43,6 +43,26 @@
 // slower than the old body on the same card
 // (tests/test_torch_mandelbrot_bodies.py).
 //
+// Which tiles take the patches: those of 1024 pixels or more, the CTA's
+// threads (`packs_tiles`, the one rule; the launch reports it).  A smaller
+// tile leaves most of the CTA idle that way, and a 1x1 tile leaves one live
+// lane of 1024 running its pixels one after another.  So smaller tiles are
+// packed onto the lanes: a worker's claimed tiles, in table order, are one
+// flat list of pixels, taken in batches of kPackClaims * 1024 claims; a
+// block scan puts each claim's first flat pixel in shared memory, thread t
+// takes flat pixels t, t + 1024, ... of the batch, and a binary search
+// finds each one's claim.  Any claim size works, since pixels, not claims,
+// are spread over the threads.  On an H100 (700 W), over the paper's
+// 1152x1152 image at CT 1000 in 1x1 tiles with ss tables of 132 workers,
+// the patch loop took 38.1-38.5 ms and the packed path 0.46-0.51 ms in six
+// readings of seven (one 0.61; bound 0.124 ms).  Warps drawing 32 flat
+// pixels at a time from a shared-memory counter took 0.50-0.51 ms, no surer
+// gain, so the simpler fixed stride stays; batches of 1024 claims took
+// 0.51-0.56 ms with either hand-out.  Tiles of 1024 pixels or more keep the
+// patch loop: packing them too ran the 64x64 ss tables 17 % slower (5.10-5.15
+// ms against 4.37-4.43; gss and fac2 unmoved), as warps over tile rows do.
+// With the two paths the 64x64 tables stayed within 1.5 % of the patch loop.
+//
 // Numeric traps handled here:
 //   1. FMA contraction: built with -fmad=false, so z*z - w*w and the
 //      coordinate expression round each operation as XLA's unfused f32 does.
@@ -132,13 +152,126 @@ __device__ __forceinline__ int escape_count_unrolled(int row, int col, const Man
     return cnt;
 }
 
-__global__ void __launch_bounds__(1024)
+// A persistent CTA's threads, and the one rule that picks its path (see the
+// note at the head: tiles of fewer pixels than threads are packed onto lanes).
+constexpr int kThreads = 1024;
+__host__ __device__ constexpr bool packs_tiles(int block_h, int block_w) {
+    return block_h * block_w < kThreads;
+}
+constexpr int kPackClaims = 4;  // packed path: claims each thread loads into a batch
+
+// One batch of up to K * kThreads consecutive claims of a worker's table, in
+// shared memory: where each claim's pixels start in the batch's flat list of
+// pixels (an exclusive prefix of sizes x tile pixels; entries past the
+// batch's last claim hold its total) and each claim's first tile.
+template <int K>
+struct PackedBatch {
+    int prefix[K * kThreads];
+    int start[K * kThreads];
+    int warp_sum[kThreads / 32];
+    int total;  // the batch's pixels
+};
+
+// Fills `b` from claims starts[0..m), sizes[0..m) (one load each, coalesced)
+// with a block scan (warp shuffles, then warp 0 over the 32 warp sums);
+// returns the batch's pixel count.  Every thread of the CTA calls it; it
+// ends on a barrier.
+template <int K>
+__device__ int load_batch(PackedBatch<K>& b, const int* starts, const int* sizes, int m,
+                          int tile_px) {
+    for (int c = threadIdx.x; c < K * kThreads; c += kThreads) {
+        b.start[c] = c < m ? starts[c] : 0;
+        b.prefix[c] = c < m ? sizes[c] * tile_px : 0;
+    }
+    __syncthreads();
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    int own[K], sum = 0;
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+        own[i] = b.prefix[threadIdx.x * K + i];
+        sum += own[i];
+    }
+    int incl = sum;
+#pragma unroll
+    for (int d = 1; d < 32; d *= 2) {
+        const int v = __shfl_up_sync(0xffffffffu, incl, d);
+        if (lane >= d) incl += v;
+    }
+    if (lane == 31) b.warp_sum[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+        const int s = b.warp_sum[lane];
+        int ws = s;
+#pragma unroll
+        for (int d = 1; d < 32; d *= 2) {
+            const int v = __shfl_up_sync(0xffffffffu, ws, d);
+            if (lane >= d) ws += v;
+        }
+        b.warp_sum[lane] = ws - s;
+        if (lane == 31) b.total = ws;
+    }
+    __syncthreads();
+    int run = b.warp_sum[warp] + incl - sum;
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+        b.prefix[threadIdx.x * K + i] = run;
+        run += own[i];
+    }
+    __syncthreads();
+    return b.total;
+}
+
+// Flat pixel f (< the batch's total) of `b`: its claim is the last c with
+// prefix[c] <= f, found by a binary search of fixed depth; then its tile and
+// the pixel row-major in that tile.  False if it lies outside the image (a
+// ragged edge tile).
+template <int K>
+__device__ __forceinline__ bool batch_pixel(const PackedBatch<K>& b, int f, int gw, int block_h,
+                                            int block_w, const MandelGeom& g, int& row,
+                                            int& col) {
+    int c = 0;
+#pragma unroll
+    for (int step = K * kThreads / 2; step > 0; step /= 2) {
+        if (b.prefix[c + step] <= f) c += step;
+    }
+    const int tile_px = block_h * block_w;
+    const int local = f - b.prefix[c];
+    const int t = local / tile_px;
+    const int p = local - t * tile_px;
+    const int tile = b.start[c] + t;
+    const int ti = tile / gw;
+    const int r = p / block_w;
+    row = ti * block_h + r;
+    col = (tile - ti * gw) * block_w + (p - r * block_w);
+    return row < g.height && col < g.width;
+}
+
+__global__ void __launch_bounds__(kThreads)
 mandelbrot_persistent_kernel(int* out, const int* nclaims, const int* first,
                              const int* starts, const int* sizes, int gw, int block_h,
                              int block_w, MandelGeom g) {
     const int w = blockIdx.x;
     const int n = nclaims[w];
     const int at = first[w];  // this worker's claims: at + c, c < n
+    if (packs_tiles(block_h, block_w)) {
+        // thread t takes flat pixels t, t + kThreads, ... of each batch: a
+        // warp, 32 consecutive ones
+        __shared__ PackedBatch<kPackClaims> b;
+        for (int c0 = 0; c0 < n; c0 += kPackClaims * kThreads) {
+            const int total = load_batch(b, starts + at + c0, sizes + at + c0,
+                                         min(n - c0, kPackClaims * kThreads),
+                                         block_h * block_w);
+            for (int f = threadIdx.x; f < total; f += kThreads) {
+                int row, col;
+                if (batch_pixel(b, f, gw, block_h, block_w, g, row, col)) {
+                    out[static_cast<size_t>(row) * g.width + col] =
+                        escape_count_unrolled<kUnroll>(row, col, g);
+                }
+            }
+            __syncthreads();  // the batch is read to its end before the next overwrites it
+        }
+        return;
+    }
     // the tile padded to whole patches, patches row-major: warp-step p / 32
     // takes patch p / 32, lane p % 32 its pixel (lane / kPatchW, lane % kPatchW)
     const int patch_cols = (block_w + kPatchW - 1) / kPatchW;
@@ -183,11 +316,12 @@ extern "C" int repro_mandelbrot_persistent(int device, void* out, void* nclaims,
                                            void* starts, void* sizes, int workers, int gw,
                                            int block_h, int block_w, int width, int height,
                                            int ct, float xmin, float dx, float ymin, float dy,
-                                           void* stream) {
+                                           void* stream, int* packed) {
     const DeviceGuard guard(device);
     if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
+    *packed = packs_tiles(block_h, block_w);
     const MandelGeom g{width, height, ct, xmin, dx, ymin, dy};
-    mandelbrot_persistent_kernel<<<workers, 1024, 0, static_cast<cudaStream_t>(stream)>>>(
+    mandelbrot_persistent_kernel<<<workers, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<int*>(out), static_cast<const int*>(nclaims),
         static_cast<const int*>(first), static_cast<const int*>(starts),
         static_cast<const int*>(sizes), gw, block_h, block_w, g);

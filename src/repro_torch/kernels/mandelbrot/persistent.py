@@ -12,8 +12,22 @@ and uploaded (``device.persistent.persistent_tables``).
 
 Pixel math is the one ``z4c_step`` iteration the static kernel runs too,
 so the two paths are exactly equal.  The persistent body tests for an
-escape once every 16 iterations and gives each warp a 4x8 patch of its
-tile (``csrc/mandelbrot.cu``).
+escape once every 16 iterations (``csrc/mandelbrot.cu``) and takes one of
+two paths, by the tile's shape alone (``packs_tiles`` there):
+
+- a tile of 1,024 pixels or more (the CTA's threads) is spread over the
+  CTA, each warp a 4x8 patch of it at a time;
+- a smaller tile would leave most threads idle that way (a 1x1 tile: one
+  live lane of 1,024), so the worker's claimed tiles, in table order, are
+  one flat list of pixels, spread over the CTA's threads in batches.
+
+The launch reports which path it took; under a profiler the root span
+``repro_torch.mandelbrot_persistent`` counts ``packed_tiles``, the call's
+tile count N where the tiles were packed and 0 where not.  On an H100 the
+kernel alone, over the paper's 1152x1152 image at CT 1000 in 1x1 tiles
+with ss tables of 132 workers, took 38.1-38.5 ms in the patch loop and
+0.46-0.51 ms packed; packing 64x64 tiles too ran ss tables of them 17 %
+slower, so large tiles keep the patches (``tests/test_torch_mandelbrot_bodies.py``).
 """
 from __future__ import annotations
 
@@ -23,7 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.spans import span
+from repro_torch.spans import count, span
 
 from .ref import escape_counts, geometry
 
@@ -68,12 +82,14 @@ def _persistent_cuda(nclaims, first, starts, sizes, *, width, height, ct, xlim, 
     xmin, dx, ymin, dy = geometry(width, height, xlim, ylim)
     c_int, c_float, c_ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
     fn = _build.function("mandelbrot", "repro_mandelbrot_persistent", c_int,
-                         *([c_ptr] * 5), *([c_int] * 7), *([c_float] * 4), c_ptr)
+                         *([c_ptr] * 5), *([c_int] * 7), *([c_float] * 4), c_ptr, c_ptr)
+    packed = c_int()  # the launch's path: 1 where it packed the tiles onto lanes
     err = fn(out.device.index, _build.ptr(out), *(_build.ptr(t) for t in tables), W, gw,
              block_h, block_w, width, height, ct, xmin, dx, ymin, dy,
-             _build.stream_of(out))
+             _build.stream_of(out), ctypes.byref(packed))
     _build.check(err, "mandelbrot persistent kernel")
     _build.LAUNCHES["mandelbrot_persistent"] += 1
+    count("packed_tiles", -(-height // block_h) * gw if packed.value else 0)
     return out
 
 

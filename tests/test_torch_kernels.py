@@ -82,9 +82,35 @@ def test_mandelbrot_persistent_rejects_foreign_schedule():
                                  schedule=sched, device="cpu")
 
 
-#: csrc/mandelbrot.cu, the persistent kernel: threads per CTA and the patch
-#: of a tile that one warp-step takes
-THREADS, PATCH_H, PATCH_W = 1024, 4, 8
+#: csrc/mandelbrot.cu, the persistent kernel: threads per CTA, the patch of
+#: a tile that one warp-step takes, and the claims a thread loads into a
+#: packed batch
+THREADS, PATCH_H, PATCH_W, PACK_CLAIMS = 1024, 4, 8, 4
+
+
+def _packs(bh, bw):
+    """The kernel's ``packs_tiles``: tiles of fewer pixels than a CTA has
+    threads are packed onto its lanes."""
+    return bh * bw < THREADS
+
+
+def test_mirrors_follow_the_kernel_source():
+    """The constants and the rule these mirrors copy are the source's."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    src = (_build.CSRC / "mandelbrot.cu").read_text()
+
+    def const(name):
+        (v,) = re.findall(rf"constexpr int {name} = ([^;]+);", src)
+        return v
+
+    assert int(const("kThreads")) == THREADS
+    assert int(const("kPatchH")) == PATCH_H and const("kPatchW") == "32 / kPatchH"
+    assert int(const("kPackClaims")) == PACK_CLAIMS
+    assert "return block_h * block_w < kThreads;" in src
+    assert src.count("packs_tiles(block_h, block_w)") == 2  # the kernel and its launch
 
 
 def _persistent_pixels(nclaims, first, starts, sizes, *, gw, bh, bw, width, height):
@@ -125,6 +151,7 @@ def test_persistent_body_covers_each_pixel_once(bh, bw, workers):
     workers and 48 tiles some tables are empty."""
     from repro_torch.device import claim_schedule
 
+    assert not _packs(bh, bw)  # these tiles take the patch loop
     width, height = 1000, 700
     gw, gh = -(-width // bw), -(-height // bh)
     sched = claim_schedule("gss", gw * gh, workers, device="cpu")
@@ -149,6 +176,80 @@ def test_persistent_body_covers_each_pixel_once(bh, bw, workers):
     one = px[:, 0] * THREADS + px[:, 1]  # no thread takes two pixels in one step
     for t in np.unique(one)[::97]:
         assert np.array_equal(np.sort(px[one == t, 2]), np.unique(px[one == t, 2]))
+
+
+def _packed_pixels(nclaims, first, starts, sizes, *, gw, bh, bw, width, height):
+    """Mirror of the kernel's packed path: one row (worker, batch, flat
+    pixel, row, col) per pixel it writes.  A worker's claims go in batches of
+    PACK_CLAIMS * THREADS; a batch's prefix holds, for each of its slots,
+    the pixels of the claims before it (slots past its last claim: its
+    total); flat pixel f < total lies in the last claim c with prefix[c] <= f,
+    found by the kernel's fixed-depth binary search, and is pixel
+    f - prefix[c] of that claim's tiles, row-major in each tile."""
+    tile_px, batch = bh * bw, PACK_CLAIMS * THREADS
+    out = []
+    for w in range(len(nclaims)):
+        st_w = starts[first[w]:first[w] + nclaims[w]]
+        sz_w = sizes[first[w]:first[w] + nclaims[w]]
+        for k, c0 in enumerate(range(0, nclaims[w], batch)):
+            px = np.zeros(batch, np.int64)
+            start = np.zeros(batch, np.int64)
+            m = min(batch, nclaims[w] - c0)
+            px[:m] = sz_w[c0:c0 + m] * tile_px
+            start[:m] = st_w[c0:c0 + m]
+            prefix = np.cumsum(px) - px
+            f = np.arange(prefix[-1] + px[-1])
+            c = np.zeros_like(f)
+            step = batch // 2
+            while step:
+                c = np.where(prefix[c + step] <= f, c + step, c)
+                step //= 2
+            assert np.array_equal(c, np.searchsorted(prefix, f, "right") - 1)
+            local = f - prefix[c]
+            tile = start[c] + local // tile_px
+            p = local % tile_px
+            row = tile // gw * bh + p // bw
+            col = tile % gw * bw + p % bw
+            ok = (row < height) & (col < width)
+            out.append(np.stack([np.full(ok.sum(), w), np.full(ok.sum(), k), f[ok],
+                                 row[ok], col[ok]], 1))
+    return np.concatenate(out) if out else np.zeros((0, 5), np.int64)
+
+
+PACKED_CPU = [  # (technique, width, height, block_h, block_w, workers)
+    ("ss", 96, 90, 1, 1, 2),        # 4,320 claims a worker: two batches each
+    ("gss", 200, 120, 1, 1, 7),     # a first claim of thousands of tiles
+    ("fac2", 200, 120, 1, 1, 7),
+    ("tss", 200, 120, 1, 1, 132),
+    ("gss", 1000, 700, 3, 5, 7),    # ragged edge tiles
+    ("ss", 201, 123, 8, 8, 132),
+    ("gss", 1000, 700, 31, 33, 7),  # 1,023 pixels: the edge of the rule
+    ("fac2", 200, 120, 31, 33, 132),  # more workers than tiles
+]
+
+
+@pytest.mark.parametrize("technique,width,height,bh,bw,workers", PACKED_CPU)
+def test_packed_body_covers_each_pixel_once(technique, width, height, bh, bw, workers):
+    """Tiles smaller than a CTA take the packed path, and its flat walk over
+    a worker's claims writes every pixel once, from the worker whose table
+    holds the pixel's tile, and nothing outside the image."""
+    from repro_torch.device import claim_schedule
+
+    assert _packs(bh, bw)
+    gw, gh = -(-width // bw), -(-height // bh)
+    sched = claim_schedule(technique, gw * gh, workers, device="cpu")
+    nclaims, first, starts, sizes = sched.tables()
+    px = _packed_pixels(nclaims, first, starts, sizes, gw=gw, bh=bh, bw=bw,
+                        width=width, height=height)
+    hits = np.zeros((height, width), np.int64)
+    np.add.at(hits, (px[:, 3], px[:, 4]), 1)
+    assert (hits == 1).all()
+    owner = np.empty(gw * gh, np.int64)
+    for w, st, sz in zip(sched.workers, sched.starts, sched.sizes):
+        owner[st:st + sz] = w
+    assert np.array_equal(px[:, 0], owner[px[:, 3] // bh * gw + px[:, 4] // bw])
+    if technique == "ss" and bh == 1:
+        assert px[:, 1].max() == 1  # the second batch is reached
 
 
 def _escape_counts_unrolled(rows, cols, *, ct, width, height, K=16):
@@ -314,6 +415,17 @@ PERSISTENT_CARD = [  # (technique, width, height, ct, block_h, block_w, workers)
     ("ss", 1000, 700, 90, 48, 40, 132),
     ("fac2", 200, 120, 150, 128, 128, 5),  # more workers than tiles
     ("gss", 96, 80, 0, 32, 32, 3),         # CT = 0: every count is 0
+    # tiles packed onto the lanes (fewer pixels than a CTA's 1,024 threads)
+    *[(t, 200, 120, 150, 1, 1, 7) for t in ("gss", "fac2", "tss", "ss")],
+    ("gss", 1000, 700, 90, 3, 5, 7),      # ragged tiles, partial edge tiles
+    ("ss", 1000, 700, 90, 3, 5, 132),
+    ("fac2", 1000, 700, 90, 8, 8, 132),
+    ("ss", 1001, 703, 90, 8, 8, 7),
+    ("gss", 1000, 700, 90, 31, 33, 7),    # 1,023 pixels: the edge of the rule
+    ("ss", 200, 120, 150, 31, 33, 132),   # more workers than tiles
+    ("gss", 96, 80, 0, 1, 1, 3),          # CT = 0
+    ("ss", 96, 80, 0, 8, 8, 132),
+    ("ss", 1152, 1152, 1000, 1, 1, None),  # the paper's loop, P = the SM count
 ]
 
 
@@ -322,6 +434,8 @@ PERSISTENT_CARD = [  # (technique, width, height, ct, block_h, block_w, workers)
 def test_mandelbrot_persistent_kernel_equals_static(technique, width, height, ct,
                                                     bh, bw, workers):
     require_card()
+    if workers is None:
+        workers = torch.cuda.get_device_properties(0).multi_processor_count
     ref = tk.mandelbrot(width, height, ct=ct)
     out, sched = tk.mandelbrot_persistent(
         width, height, ct=ct, block_h=bh, block_w=bw, technique=technique,
@@ -331,6 +445,27 @@ def test_mandelbrot_persistent_kernel_equals_static(technique, width, height, ct
         width, height, ct=ct, block_h=bh, block_w=bw, workers=workers,
         schedule=sched, device="cpu")
     assert torch.equal(out.cpu(), plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile,packed", [(1, True), (32, False), (64, False)])
+def test_persistent_counts_packed_tiles(tile, packed):
+    """Under a profiler the entry's root span counts ``packed_tiles``: the
+    call's N where the kernel packed its tiles onto lanes, else 0."""
+    require_card()
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import spans
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        out, sched = tk.mandelbrot_persistent(256, 192, ct=50, block_h=tile, block_w=tile,
+                                              technique="gss", workers=7)
+        torch.cuda.synchronize()
+    root = [r for r in spans.records() if r.parent is None][-1]
+    assert root.name == "repro_torch.mandelbrot_persistent"
+    assert sched.N == (256 // tile) * (192 // tile)
+    assert root.counts.get("packed_tiles") == (sched.N if packed else 0)
+    assert torch.equal(out, tk.mandelbrot(256, 192, ct=50))
 
 
 SPIN_CARD = [*[(*g, False) for g in SPIN_GRID],  # ... and has_nan

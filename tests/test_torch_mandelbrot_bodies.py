@@ -4,15 +4,28 @@
 
 Each body below replaces the persistent kernel of
 ``src/repro_torch/csrc/mandelbrot.cu`` in a copy of that source (everything
-else stays) and is built with the port's flags into pytest's tmp dir.  Over
-chip_smoke.py's Mandelbrot cell (4096x4096, CT 2000, 64x64 tiles, claim
-tables of gss, ss and fac2 at P = the SM count) each image must equal the
+else, the packed path's helpers too, stays) and is built with the port's
+flags into pytest's tmp dir.  Over chip_smoke.py's Mandelbrot cell
+(4096x4096, CT 2000, 64x64 tiles, claim tables of gss, ss and fac2 at P =
+the SM count) and over the paper's own loop (1152x1152, CT 1000, 1x1 tiles,
+ss tables at P = the SM count: "pixels ss") each image must equal the
 static kernel's exactly.  With ``-s`` the test prints each body's time
 (median of 5 CUDA-event timings) in turns, forward and then backward over
 the bodies, so that the card's drift shows: the record behind the design
 note in the source.
 
   committed      the kernel as it is in the source
+  patch_only     every tile through the patch loop, the small ones too
+                 (the kernel before tiles were packed onto lanes)
+  packed_counter packed tiles, warps drawing groups of 32 consecutive flat
+                 pixels of a batch from a shared-memory counter, so that a
+                 warp done early takes the next group (the committed path
+                 gives each thread every 1024th flat pixel of a batch)
+  packed_counter_1k, packed_stride_1k
+                 the two hand-outs over batches of 1 claim a thread (the
+                 committed path loads 4)
+  packed_only    the committed packed path for every tile, the large ones
+                 too (no patch loop)
   one_step_rows  one pixel per thread, escape test after every iteration,
                  warps over rows of 32 pixels (the body before the
                  unrolled one)
@@ -36,7 +49,7 @@ from repro_torch.kernels import _build
 from _torch_support import require_card
 
 ROOT = Path(__file__).resolve().parents[1]
-HEAD = """__global__ void __launch_bounds__(1024)
+HEAD = """__global__ void __launch_bounds__(kThreads)
 mandelbrot_persistent_kernel(int* out, const int* nclaims, const int* first,
                              const int* starts, const int* sizes, int gw, int block_h,
                              int block_w, MandelGeom g) {
@@ -170,19 +183,68 @@ REFILL = """    Walk walk{starts + at, sizes + at, n, gw,
     }
 }
 """
+PACKED = """    if (packs_tiles(block_h, block_w)) {
+        __shared__ PackedBatch<CLAIMS> b;
+        __shared__ int next;  // the counter's next flat pixel
+        const int lane = threadIdx.x % 32;
+        for (int c0 = 0; c0 < n; c0 += CLAIMS * kThreads) {
+            if (threadIdx.x == 0) next = 0;  // load_batch's barriers order it
+            const int total = load_batch(b, starts + at + c0, sizes + at + c0,
+                                         min(n - c0, CLAIMS * kThreads), block_h * block_w);
+            HANDOUT
+            __syncthreads();
+        }
+        return;
+    }
+"""
+STRIDE = """for (int f = threadIdx.x; f < total; f += kThreads) {
+                int row, col;
+                if (batch_pixel(b, f, gw, block_h, block_w, g, row, col))
+                    out[static_cast<size_t>(row) * g.width + col] = ESCAPE(row, col, g);
+            }"""
+COUNTER = """for (;;) {
+                int base = 0;
+                if (lane == 0) base = atomicAdd(&next, 32);
+                base = __shfl_sync(0xffffffffu, base, 0);
+                if (base >= total) break;
+                int row, col;
+                if (base + lane < total &&
+                    batch_pixel(b, base + lane, gw, block_h, block_w, g, row, col))
+                    out[static_cast<size_t>(row) * g.width + col] = ESCAPE(row, col, g);
+            }"""
 UNROLLED = "escape_count_unrolled<kUnroll>"
+
+
+def packed(handout: str, claims: int, every: bool = False) -> str:
+    """The packed path with ``handout`` over batches of ``claims`` claims a
+    thread, then the patch loop for tiles of a CTA's threads or more; with
+    ``every``, the packed path for every tile and no patch loop."""
+    body = PACKED.replace("HANDOUT", handout).replace("CLAIMS", str(claims))
+    if every:
+        body = body.replace("if (packs_tiles(block_h, block_w)) {", "{") + "}\n"
+    else:
+        body += PATCHES
+    return body.replace("ESCAPE", UNROLLED)
+
+
 BODIES = {
     "one_step_rows": ("", ROWS.replace("ESCAPE", "escape_count")),
     "unroll_rows": ("", ROWS.replace("ESCAPE", UNROLLED)),
     "one_step_patch": ("", PATCHES.replace("ESCAPE", "escape_count")),
     "pairs": ("", PAIRS),
     "refill": (REFILL_HELPERS, REFILL),
+    "patch_only": ("", PATCHES.replace("ESCAPE", UNROLLED)),
+    "packed_counter": ("", packed(COUNTER, 4)),
+    "packed_counter_1k": ("", packed(COUNTER, 1)),
+    "packed_stride_1k": ("", packed(STRIDE, 1)),
+    "packed_only": ("", packed(STRIDE, 4, every=True)),
 }
 
 
 def variant_source(src: str, helpers: str, body: str) -> str:
     """``src`` with its persistent kernel replaced by ``body``."""
-    start = src.index("__global__ void __launch_bounds__(1024)\nmandelbrot_persistent_kernel")
+    start = src.index("__global__ void __launch_bounds__(kThreads)\n"
+                      "mandelbrot_persistent_kernel")
     end = src.index("}  // namespace")
     return src[:start] + helpers + HEAD + body + "\n" + src[end:]
 
@@ -203,6 +265,9 @@ def test_persistent_bodies_equal_static_and_are_timed(tmp_path):
     print(f"\n{smi.stdout.strip()}")
     src = (_build.CSRC / "mandelbrot.cu").read_text()
     libs = {"committed": _build.build(["mandelbrot"])["mandelbrot"]}
+    for fn, info in cs.ptxas_report(_build.BUILD_LOGS.get("mandelbrot", "")).items():
+        if "persistent" in fn:
+            print(f"ptxas committed: {info}")
     procs = {}
     for name, (helpers, body) in BODIES.items():
         cu = tmp_path / f"{name}.cu"
@@ -221,19 +286,25 @@ def test_persistent_bodies_equal_static_and_are_timed(tmp_path):
 
     dev = torch.device("cuda", 0)
     P = torch.cuda.get_device_properties(0).multi_processor_count
-    N = (cs.IMG // cs.TILE) ** 2
-    image = mandelbrot(cs.IMG, ct=cs.CT)
-    costs = mandelbrot_tile_costs(image, cs.TILE, cs.TILE)
-    # host-built tables, uploaded by the entries' own route
-    tables = {t: persistent_tables(t, N, P, schedule=claim_schedule(t, N, P, costs=costs),
-                                   device=dev)[0]
-              for t in ("gss", "ss", "fac2")}
+    # (image side, CT, tile side, technique) -> host-built tables, uploaded by
+    # the entries' own route
+    cases = {t: (cs.IMG, cs.CT, cs.TILE, t) for t in ("gss", "ss", "fac2")}
+    cases["pixels ss"] = (cs.PIXELS, 1000, 1, "ss")
+    images, tables = {}, {}
+    for name, (side, ct, tile, t) in cases.items():
+        if (side, ct) not in images:
+            images[side, ct] = mandelbrot(side, ct=ct)
+        N = (side // tile) ** 2
+        costs = mandelbrot_tile_costs(images[side, ct], tile, tile)
+        tables[name] = persistent_tables(t, N, P, schedule=claim_schedule(t, N, P, costs=costs),
+                                         device=dev)[0]
     library = _build.library
 
-    def run(t):
-        return _persistent_cuda(*tables[t], width=cs.IMG, height=cs.IMG, ct=cs.CT,
-                                xlim=(-2.0, 1.0), ylim=(-1.5, 1.5), block_h=cs.TILE,
-                                block_w=cs.TILE, gw=cs.IMG // cs.TILE, device=dev)
+    def run(name):
+        side, ct, tile, _ = cases[name]
+        return _persistent_cuda(*tables[name], width=side, height=side, ct=ct,
+                                xlim=(-2.0, 1.0), ylim=(-1.5, 1.5), block_h=tile,
+                                block_w=tile, gw=side // tile, device=dev)
 
     names = list(libs)
     try:
@@ -243,11 +314,13 @@ def test_persistent_bodies_equal_static_and_are_timed(tmp_path):
                     ctypes.CDLL(str(lib)) if n == "mandelbrot" else library(n))
                 _build.function.cache_clear()
                 line = []
-                for t in tables:
-                    assert torch.equal(run(t), image), f"{name} over {t}"
+                for t, (side, ct, _, _) in cases.items():
+                    assert torch.equal(run(t), images[side, ct]), f"{name} over {t}"
                     line.append(f"{t} {cs.cuda_ms(lambda: run(t))!r} ms")
                 print(f"turn {turn} {name}: " + ", ".join(line), flush=True)
     finally:
         _build.library = library
         _build.function.cache_clear()
-    print(f"static: {cs.cuda_ms(lambda: mandelbrot(cs.IMG, ct=cs.CT))!r} ms")
+    for side, ct in images:
+        print(f"static {side}x{side} CT {ct}: "
+              f"{cs.cuda_ms(lambda: mandelbrot(side, ct=ct))!r} ms")
