@@ -48,7 +48,15 @@ protocol and applications through the port's public entry points:
      instance's own key, held to the plain version on its own tables and,
      on the valid rows, to the benchmark's plain reference, then each
      instance timed: the ``flash_attention_persistent_full`` and
-     ``..._swa_sink`` rows;
+     ``..._swa_sink`` rows; then ``moe_experts_persistent`` over the
+     benchmark cell ``mimo-v2-flash-moe.skewed-ep16-gss``'s period of
+     MiMo-V2-Flash's routed experts at its widths and token count (6
+     layers, 131,072 tokens a layer over 256 experts onto 16 held, top-8,
+     4096 -> 2048), every layer held to the benchmark's reference at the
+     cell's limits and each loop's kernel and the combine to their plain
+     versions on the layer's own schedules, then timed beside their bounds
+     and ``torch._grouped_mm``: the ``moe_experts_up``, ``moe_experts_down``
+     and ``moe_combine`` rows;
   8. mamba2-370m at full width (48 layers, d_model 1024, 32 SSD heads of
      dim 64, state 128; random weights from seed 0): ``api.forward`` on
      B=4 prompts of 2048 tokens with ``backend="pallas"`` (the SSD scan
@@ -174,10 +182,10 @@ protocol and applications through the port's public entry points:
      each held to its asserts and last line, with no child left after
      dls_processes.
 
-The launch counts are zeroed just before each path (2-5, 6, 7, 8, 10's run
-of the selected technique, 11, whose worker processes count their own
-launches into shared memory, each model of 12, and 15's Mandelbrot
-example) and read just after.
+The launch counts are zeroed just before each path (2-5, 6, 7 and its
+hybrid and MoE stacks, 8, 10's run of the selected technique, 11, whose
+worker processes count their own launches into shared memory, each model
+of 12, and 15's Mandelbrot example) and read just after.
 Every kernel is then held against its plain PyTorch version on the same
 inputs, every schedule against the host plan, the two model backends
 against each other, and each kernel is timed with CUDA events
@@ -868,6 +876,144 @@ def hybrid_path(dev, P: int):
             name, FA_SOURCE, "src/repro/kernels/flash_attention/persistent.py:30",
             launches[name], err[name], ms, plain, b_ms, None))
     return rows
+
+
+MOE_CELL = "mimo-v2-flash-moe.skewed-ep16-gss"  # the benchmark cell whose inputs phase 7 drains
+MOE_SOURCE = "src/repro_torch/csrc/moe_experts.cu"
+MOE_REPLACES = "src/repro/models/layers.py:478"
+# |kernel - plain| <= atol + rtol |plain|: tests/test_torch_moe_experts.py's bf16 bars
+MOE_ATOL, MOE_RTOL = 5e-3, 1e-2
+
+
+def moe_path(dev):
+    """Phase 7, the routed experts: ``moe_experts_persistent`` over the
+    benchmark cell's period at its widths and token count (6 MoE layers of
+    MiMo-V2-Flash, 131,072 tokens a layer routed over 256 experts onto the
+    16 held, inputs from the cell's driver at seed 0), its launches counted
+    and every layer held to the benchmark's plain reference at the cell's
+    limits; then, on each layer's own schedules, both loops' kernels against
+    their plain versions within the tests' bf16 bars (the down loop reading
+    the card's h), the combine against its plain version and the entry's
+    partial sum exactly; then layer 0's three kernels timed beside their
+    bounds and ``torch._grouped_mm`` (a yardstick only; the port never calls
+    it).  Returns the three kernel rows."""
+    import numpy as np
+    import torch
+
+    from loopbench import harness
+    from loopbench.drivers.moe_experts import Driver
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.moe_experts import kernel as moe
+    from repro_torch.kernels.moe_experts.persistent import (
+        expert_tiles, moe_experts_persistent, route, sort_assignments)
+
+    wl = harness.workload(MOE_CELL)
+    drv = Driver({**wl["traffic"], "token_sets": 1}, harness.config(wl["config"]), 0, dev)
+    layers, e0, e1, top_k = drv.layers(0), drv.e0, drv.e1, drv.top_k
+    d, ff, E = drv.d, drv.ff, drv.e1 - drv.e0
+    torch.cuda.synchronize()
+
+    _build.reset_launches()
+    t_path = time.perf_counter()
+    got = moe_experts_persistent(layers, experts=(e0, e1), top_k=top_k,
+                                 technique=wl["traffic"]["technique"], workers=drv.P)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    L = len(layers)
+    want = {"protocol": 2 * L, "moe_experts_up": L, "moe_experts_down": L, "moe_combine": L}
+    print(f"moe path: {time.perf_counter() - t_path:.2f} s wall, launches "
+          f"{ {n: launches[n] for n in want} }")
+    for n, c in want.items():
+        check(launches[n] == c, f"moe path: {c} {n} launches, got {launches[n]}")
+    nums = drv.check([(0, got)])[0]
+    for key, limit in wl["limits"].items():
+        check(nums[key] <= limit, f"moe path: {key} {nums[key]!r} within the cell's {limit}")
+    print(f"moe path vs the benchmark's reference: {nums}")
+
+    def bf16_bars(out, plain):
+        d = (out.float() - plain.float()).abs()
+        return bool((d <= MOE_ATOL + MOE_RTOL * plain.float().abs()).all()), float(d.max())
+
+    err, timed = {"moe_experts_up": 0.0, "moe_experts_down": 0.0, "moe_combine": 0.0}, None
+    for i, ((x, rw, bias, wg, wu, wd), res) in enumerate(zip(layers, got)):
+        ids, w = route(x, rw, bias, top_k)
+        check(torch.equal(ids, res.experts), f"moe layer {i}: routing == the entry's")
+        rows, pos, counts = sort_assignments(ids, e0, e1)
+        c = counts.cpu().numpy()
+        R = int(c.sum())
+        h = torch.empty((R, ff), dtype=x.dtype, device=dev)
+        y = torch.empty((R, d), dtype=x.dtype, device=dev)
+        loops = []
+        for up, sched, a, src, w0, w1, out, ncol in (
+                (True, res.schedules[0], x, rows, wg, wu, h, ff // moe.UP_COLS),
+                (False, res.schedules[1], h, None, wd, wd, y, d // moe.DOWN_COLS)):
+            costs, meta, _ = expert_tiles(c, ncol)
+            check(sched.N == len(costs), f"moe layer {i}: N == the closed form's tiles")
+            card, host = card_tables(sched, dev), sched.tables()
+            meta_card = torch.from_numpy(meta).to(dev)
+            moe.experts_cuda(up, card, a, src, meta_card, w0, w1, out)
+            plain = moe.experts_plain(up, host, a, src, meta, w0, w1, torch.empty_like(out))
+            name = "moe_experts_up" if up else "moe_experts_down"
+            ok, diff = bf16_bars(out, plain)
+            check(ok, f"moe layer {i}: {name} kernel == plain within the bf16 bars "
+                      f"(max {diff!r})")
+            err[name] = max(err[name], diff)
+            loops.append((up, card, host, a, src, meta_card, meta, w0, w1, out))
+        comb = moe.combine_cuda(pos, w, y, torch.empty_like(x))
+        comb_plain = moe.combine_plain(pos, w, y, torch.empty_like(x))
+        check(torch.equal(comb, comb_plain), f"moe layer {i}: combine == plain exactly")
+        check(torch.equal(comb, res.out), f"moe layer {i}: the entry's partial sum == the "
+                                          f"kernels' on its own schedules")
+        print(f"moe layer {i}: {R} held rows, loads max / mean "
+              f"{float(c.max() / c.mean())!r}; up {res.schedules[0].N} and down "
+              f"{res.schedules[1].N} tiles; max |kernel - plain| up {err['moe_experts_up']!r}, "
+              f"down {err['moe_experts_down']!r}; combine and partial sum exact")
+        if i == 0:
+            timed = (R, c, rows, pos, w, counts, loops)
+        del h, y, loops
+
+    R, c, rows, pos, w, counts, loops = timed
+    x, wg, wu, wd = layers[0][0], layers[0][3], layers[0][4], layers[0][5]
+    nbytes = x.element_size()
+    work = {"moe_experts_up": (2.0 * R * d * 2 * ff,
+                               nbytes * (R * d + 2 * E * ff * d + R * ff)),
+            "moe_experts_down": (2.0 * R * ff * d, nbytes * (R * ff + E * d * ff + R * d)),
+            "moe_combine": (2.0 * R * d, 8 * x.shape[0] * top_k + nbytes * (R * d + x.numel()))}
+    lib = {"moe_experts_up": None, "moe_experts_down": None, "moe_combine": None}
+    grouped = getattr(torch, "_grouped_mm", None)
+    if grouped is not None:
+        xs = x[rows[:R].long()]
+        offs = torch.cumsum(counts, 0).to(torch.int32)
+        b_up = torch.cat([wg, wu], dim=1).transpose(1, 2)  # gate and up as one product
+        h = loops[1][3]
+        try:
+            lib["moe_experts_up"] = cuda_ms(lambda: grouped(xs, b_up, offs=offs))
+            lib["moe_experts_down"] = cuda_ms(lambda: grouped(h, wd.transpose(1, 2), offs=offs))
+        except (RuntimeError, TypeError) as e:
+            print(f"torch._grouped_mm did not run here: {e!r}"[:400])
+        del xs, b_up
+    y = loops[1][9]
+    rows_out = []
+    for up, card, host, a, src, meta_card, meta, w0, w1, out in loops:
+        name = "moe_experts_up" if up else "moe_experts_down"
+        ms = cuda_ms(lambda: moe.experts_cuda(up, card, a, src, meta_card, w0, w1, out))
+        plain = cuda_ms(lambda: moe.experts_plain(up, host, a, src, meta, w0, w1,
+                                                  torch.empty_like(out)), reps=1, warmup=False)
+        ops, b = work[name]
+        b_ms = bound(b, ops, BF16_FLOPS_PER_S)
+        print(f"time {name} (layer 0, {R} held rows): {ms!r} ms ({ops / ms / 1e9!r} TFLOP/s; "
+              f"{100 * b_ms[0] / ms!r} % of the bound)")
+        rows_out.append(kernel_row(name, MOE_SOURCE, MOE_REPLACES, launches[name], err[name],
+                                   ms, plain, b_ms, lib[name]))
+    ms = cuda_ms(lambda: moe.combine_cuda(pos, w, y, torch.empty_like(x)))
+    plain = cuda_ms(lambda: moe.combine_plain(pos, w, y, torch.empty_like(x)),
+                    reps=1, warmup=False)
+    ops, b = work["moe_combine"]
+    rows_out.append(kernel_row("moe_combine", MOE_SOURCE, MOE_REPLACES, launches["moe_combine"],
+                               err["moe_combine"], ms, plain, bound(b, ops), None))
+    for r in rows_out:
+        r.update(held_rows_layer0=R, load_max_layer0=int(c.max()))
+    return rows_out
 
 
 def model_path(dev) -> int:
@@ -3479,6 +3625,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     rows += attention_path(dev, P, static_launches=model_path(dev))
     rows += hybrid_path(dev, P)
+    rows += moe_path(dev)
     t_ssm = time.perf_counter()
     rows.append(ssm_model_path(dev))
     print(f"ssm phase: {time.perf_counter() - t_ssm:.1f} s wall")

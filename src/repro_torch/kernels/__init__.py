@@ -13,6 +13,11 @@ Port of ``repro.kernels``, all four of its kernel packages:
   ssd_scan        -- the Mamba2 SSD chunked scan (state carried across
                      chunks), the SSM model's forward and prefill
 
+and one with no counterpart there:
+
+  moe_experts     -- the routed experts of an expert-parallel MoE layer,
+                     dropless, as two self-scheduled loops a layer
+
 Each entry point runs on the card unless given CPU tensors or
 ``device="cpu"``, where the kernel's plain PyTorch version runs.  The CUDA
 sources are in ``repro_torch/csrc`` and are built at first use
@@ -23,5 +28,6 @@ from .flash_attention.persistent import (  # noqa: F401
     flash_attention_persistent, hybrid_attention_persistent)
 from .mandelbrot.ops import mandelbrot, mandelbrot_ref  # noqa: F401
 from .mandelbrot.persistent import mandelbrot_persistent  # noqa: F401
+from .moe_experts.persistent import moe_experts_persistent  # noqa: F401
 from .spin_image.ops import spin_images, spin_images_oracle  # noqa: F401
 from .ssd_scan.ops import ssd_scan, ssd_scan_oracle  # noqa: F401

@@ -42,6 +42,7 @@ SOURCES = {
     "spin_image": "spin_image.cu",
     "flash_attention": "flash_attention.cu",
     "ssd_scan": "ssd_scan.cu",
+    "moe_experts": "moe_experts.cu",
 }
 
 NVCC_FLAGS = (
@@ -62,6 +63,9 @@ LAUNCHES: Dict[str, int] = {
     "flash_attention_persistent_full": 0,  # the wide full one ...
     "flash_attention_persistent_swa_sink": 0,  # ... and the wide SWA one with sinks
     "ssd_scan": 0,
+    "moe_experts_up": 0,  # a layer's gate/up loop ...
+    "moe_experts_down": 0,  # ... its down loop
+    "moe_combine": 0,  # ... and its partial sum
 }
 
 #: library name -> nvcc's output (``-Xptxas -v``: registers, shared memory)
