@@ -896,16 +896,20 @@ def moe_path(dev):
     the card's h), the combine against its plain version and the entry's
     partial sum exactly; then layer 0's three kernels timed beside their
     bounds and ``torch._grouped_mm`` (a yardstick only; the port never calls
-    it).  Returns the three kernel rows."""
+    it); and each layer's two loops, with the entry's tile order and with
+    the identity order claimed on its own costs (the same bits), their
+    ``live_panels`` and times.  Returns the three kernel rows."""
     import numpy as np
     import torch
 
     from loopbench import harness
     from loopbench.drivers.moe_experts import Driver
+    from repro_torch.device.persistent import persistent_tables
     from repro_torch.kernels import _build
     from repro_torch.kernels.moe_experts import kernel as moe
     from repro_torch.kernels.moe_experts.persistent import (
-        expert_tiles, moe_experts_persistent, route, sort_assignments)
+        expert_tiles, live_panels, moe_experts_persistent, route, sort_assignments,
+        unit_starts)
 
     wl = harness.workload(MOE_CELL)
     drv = Driver({**wl["traffic"], "token_sets": 1}, harness.config(wl["config"]), 0, dev)
@@ -934,7 +938,9 @@ def moe_path(dev):
         d = (out.float() - plain.float()).abs()
         return bool((d <= MOE_ATOL + MOE_RTOL * plain.float().abs()).all()), float(d.max())
 
+    technique = wl["traffic"]["technique"]
     err, timed = {"moe_experts_up": 0.0, "moe_experts_down": 0.0, "moe_combine": 0.0}, None
+    orders = {"moe_experts_up": [], "moe_experts_down": []}
     for i, ((x, rw, bias, wg, wu, wd), res) in enumerate(zip(layers, got)):
         ids, w = route(x, rw, bias, top_k)
         check(torch.equal(ids, res.experts), f"moe layer {i}: routing == the entry's")
@@ -944,21 +950,46 @@ def moe_path(dev):
         h = torch.empty((R, ff), dtype=x.dtype, device=dev)
         y = torch.empty((R, d), dtype=x.dtype, device=dev)
         loops = []
-        for up, sched, a, src, w0, w1, out, ncol in (
-                (True, res.schedules[0], x, rows, wg, wu, h, ff // moe.UP_COLS),
-                (False, res.schedules[1], h, None, wd, wd, y, d // moe.DOWN_COLS)):
+        for up, sched, order, a, src, w0, w1, out, ncol in (
+                (True, res.schedules[0], res.orders[0], x, rows, wg, wu, h, ff // moe.UP_COLS),
+                (False, res.schedules[1], res.orders[1], h, None, wd, wd, y,
+                 d // moe.DOWN_COLS)):
             costs, meta, _ = expert_tiles(c, ncol)
-            check(sched.N == len(costs), f"moe layer {i}: N == the closed form's tiles")
+            N = len(costs)
+            check(sched.N == N, f"moe layer {i}: N == the closed form's tiles")
             card, host = card_tables(sched, dev), sched.tables()
-            meta_card = torch.from_numpy(meta).to(dev)
-            moe.experts_cuda(up, card, a, src, meta_card, w0, w1, out)
-            plain = moe.experts_plain(up, host, a, src, meta, w0, w1, torch.empty_like(out))
+            meta_card, order_card = torch.from_numpy(meta).to(dev), torch.from_numpy(order).to(dev)
+            moe.experts_cuda(up, card, a, src, meta_card, order_card, w0, w1, out)
+            plain = moe.experts_plain(up, host, a, src, meta, order, w0, w1,
+                                      torch.empty_like(out))
             name = "moe_experts_up" if up else "moe_experts_down"
             ok, diff = bf16_bars(out, plain)
             check(ok, f"moe layer {i}: {name} kernel == plain within the bf16 bars "
                       f"(max {diff!r})")
             err[name] = max(err[name], diff)
-            loops.append((up, card, host, a, src, meta_card, meta, w0, w1, out))
+            # beside the identity order: the tiles in expert, column block,
+            # row block order, claimed on their own costs
+            ident = np.arange(N, dtype=np.int32)
+            ident_tables = persistent_tables(technique, N, drv.P, costs=costs, device=dev)[0]
+            ident_card = torch.from_numpy(ident).to(dev)
+            ident_out = torch.empty_like(out)
+            moe.experts_cuda(up, ident_tables, a, src, meta_card, ident_card, w0, w1, ident_out)
+            check(torch.equal(ident_out, out), f"moe layer {i}: {name} == the identity order's, "
+                                               f"bit for bit")
+            starts = unit_starts(technique, N, drv.P)
+            row = {"live_panels": live_panels(starts, order, meta, ncol),
+                   "live_panels_identity": live_panels(starts, ident, meta, ncol),
+                   "ms": cuda_ms(lambda: moe.experts_cuda(up, card, a, src, meta_card,
+                                                          order_card, w0, w1, out)),
+                   "ms_identity": cuda_ms(lambda: moe.experts_cuda(
+                       up, ident_tables, a, src, meta_card, ident_card, w0, w1, ident_out))}
+            orders[name].append(row)
+            print(f"moe layer {i} {name}: live_panels {row['live_panels']} (identity "
+                  f"{row['live_panels_identity']}); {row['ms']!r} ms (identity "
+                  f"{row['ms_identity']!r} ms)")
+            del ident_out
+            loops.append((up, card, host, a, src, meta_card, meta, order_card, order, w0, w1,
+                          out))
         comb = moe.combine_cuda(pos, w, y, torch.empty_like(x))
         comb_plain = moe.combine_plain(pos, w, y, torch.empty_like(x))
         check(torch.equal(comb, comb_plain), f"moe layer {i}: combine == plain exactly")
@@ -992,12 +1023,13 @@ def moe_path(dev):
         except (RuntimeError, TypeError) as e:
             print(f"torch._grouped_mm did not run here: {e!r}"[:400])
         del xs, b_up
-    y = loops[1][9]
+    y = loops[1][11]
     rows_out = []
-    for up, card, host, a, src, meta_card, meta, w0, w1, out in loops:
+    for up, card, host, a, src, meta_card, meta, order_card, order, w0, w1, out in loops:
         name = "moe_experts_up" if up else "moe_experts_down"
-        ms = cuda_ms(lambda: moe.experts_cuda(up, card, a, src, meta_card, w0, w1, out))
-        plain = cuda_ms(lambda: moe.experts_plain(up, host, a, src, meta, w0, w1,
+        ms = cuda_ms(lambda: moe.experts_cuda(up, card, a, src, meta_card, order_card, w0, w1,
+                                              out))
+        plain = cuda_ms(lambda: moe.experts_plain(up, host, a, src, meta, order, w0, w1,
                                                   torch.empty_like(out)), reps=1, warmup=False)
         ops, b = work[name]
         b_ms = bound(b, ops, BF16_FLOPS_PER_S)
@@ -1013,6 +1045,8 @@ def moe_path(dev):
                                err["moe_combine"], ms, plain, bound(b, ops), None))
     for r in rows_out:
         r.update(held_rows_layer0=R, load_max_layer0=int(c.max()))
+        if r["name"] in orders:
+            r["layers"] = orders[r["name"]]
     return rows_out
 
 

@@ -19,11 +19,15 @@
 // A tile is (expert, a 128-row block of its sorted assignments, a column
 // block): 128 columns of h (the gate's and the up projection's panels
 // beside each other) or 256 columns of y.  Tiles are numbered expert by
-// expert, then column block, then row block, so consecutive tiles of one
-// claim share an expert's weight panel.  `meta` gives each expert's first
-// sorted row, its rows and its first tile; a tile's expert is the last
-// whose first tile is at or below it (an expert with no rows has no tile,
-// and shares its first tile with the next).
+// expert, then column block, then row block.  `meta` gives each expert's
+// first sorted row, its rows and its first tile; a tile's expert is the
+// last whose first tile is at or below it (an expert with no rows has no
+// tile, and shares its first tile with the next).  A claimed iteration j
+// runs tile `order[j]`: the entry numbers the iterations by when the
+// claimed schedule runs them (`tile_order`, at unit cost), and hands them a
+// raster of the tiles -- expert, a group of G column blocks, row block,
+// column within the group -- so the P tiles running at once read ~P / G row
+// blocks and ~G panels, not P panels.
 //
 // Bound: at MiMo-V2-Flash's widths (4096 -> 2048) an assignment costs
 // 6 * 4096 * 2048 operations and moves its x row, h twice and its y row
@@ -33,11 +37,13 @@
 // loops.  A tile does not reach that: it streams the whole K of its 128 A
 // rows and its 256 B rows for 128 x 256 outputs, 2 * 128 * 256 / (2 * 384)
 // = ~85 operations a byte, below the ridge.  Only operands the L2 serves
-// lift it.  Consecutive tiles of one claim share an expert's panel, but
-// 132 workers at once stream up to 132 different 2 MB panels (264 MB
-// against a 50 MB L2), so most operands come from HBM and the loops run
-// memory-bound: ~31 % of the operations' bound at the benchmark cell's
-// loads on an H100 SXM.
+// lift it.  Numbered expert, column block, row block, the 132 workers of
+// a gss loop start across ~10 experts and run on 68-110 different 2 MB
+// panels at once (against a 50 MB L2): ~31 % of the operations' bound at
+// the benchmark cell's loads on an H100 SXM.  In the raster order (G = 8
+// at these widths) the tiles starting together hold 8-32 panels, ~19 on
+// average, and ~17 row blocks: ~51 % of the bound, up ~5.0 and down
+// ~2.75 ms a layer.
 //
 // Design: a CTA is a persistent worker of three warpgroups.  Two consumer
 // warpgroups of 64 rows each run wgmma m64n256k16 (bf16 in, f32
@@ -97,6 +103,7 @@ struct Args {
     const __nv_bfloat16* a;  // A's rows: x (T, K) or h (R, K)
     const int* rows;       // sorted row -> row of a (the token); null: the row itself
     const int* meta;       // (3, E): first sorted row, rows, first tile of each expert
+    const int* order;      // (N,): the tile each claimed iteration runs
     __nv_bfloat16* out;    // (R, out_cols), a row per sorted assignment
     int E, K, out_cols, col_stride, j_off;
 };
@@ -181,7 +188,7 @@ __device__ __forceinline__ void for_tiles(const Args& a, F&& f) {
     const int w = blockIdx.x, n = a.nclaims[w], at = a.first[w];
     for (int c = 0; c < n; ++c) {
         const int st = a.starts[at + c], sz = a.sizes[at + c];
-        for (int t = 0; t < sz; ++t) f(tile_of(a, st + t));
+        for (int t = 0; t < sz; ++t) f(tile_of(a, a.order[st + t]));
     }
 }
 
@@ -375,15 +382,16 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 
 }  // namespace
 
-// One loop of a layer.  up != 0: w0 = W_gate and w1 = W_up, (E, N, K), a
-// tile's two panels the same 128 rows of each, h = silu(.) * (.) into
-// out (R, N); up == 0: w0 = w1 = W_down (E, N, K), a tile's panels rows
-// [256 c, +128) and [256 c + 128, +128), into out (R, N).  K % 64 == 0,
-// N % 128 (up) or % 256 (down) == 0, every pointer 16-byte aligned.
+// One loop of a layer, claimed iteration j running tile order[j].  up != 0:
+// w0 = W_gate and w1 = W_up, (E, N, K), a tile's two panels the same 128
+// rows of each, h = silu(.) * (.) into out (R, N); up == 0: w0 = w1 =
+// W_down (E, N, K), a tile's panels rows [256 c, +128) and [256 c + 128,
+// +128), into out (R, N).  K % 64 == 0, N % 128 (up) or % 256 (down) == 0,
+// every pointer 16-byte aligned.
 extern "C" int repro_moe_experts(int device, int up, void* nclaims, void* first, void* starts,
                                  void* sizes, int workers, void* a, void* rows, void* meta,
-                                 void* w0, void* w1, void* out, int E, int N, int K,
-                                 void* stream) {
+                                 void* order, void* w0, void* w1, void* out, int E, int N,
+                                 int K, void* stream) {
     const DeviceGuard guard(device);
     if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
     if (E < 1 || K < kPanel || K % kPanel != 0 || N % (up ? kCols : 2 * kCols) != 0 ||
@@ -400,6 +408,7 @@ extern "C" int repro_moe_experts(int device, int up, void* nclaims, void* first,
     args.a = static_cast<const __nv_bfloat16*>(a);
     args.rows = static_cast<const int*>(rows);
     args.meta = static_cast<const int*>(meta);
+    args.order = static_cast<const int*>(order);
     args.out = static_cast<__nv_bfloat16*>(out);
     args.E = E;
     args.K = K;

@@ -7,7 +7,9 @@ assignments to the held experts are sorted by expert, and each loop walks
 tiles of that sorted list: (expert, a ``BLK_ROWS``-row block of its
 assignments, a column block), numbered expert by expert, then column
 block, then row block.  ``meta`` (3, E) int32 gives each expert's first
-sorted row, its rows and its first tile (``persistent.expert_tiles``).
+sorted row, its rows and its first tile (``persistent.expert_tiles``).  A
+claimed iteration j runs tile ``order[j]`` (``persistent.tile_order``: the
+iterations that run together take tiles that share weight panels).
 
   up    h[r] = silu(x[rows[r]] W_gate[e]^T) * (x[rows[r]] W_up[e]^T), a
         column block ``UP_COLS`` columns of h
@@ -48,16 +50,17 @@ def _tile_decode(meta: np.ndarray, tiles: np.ndarray):
     return e, row0[e] + rb * BLK_ROWS, np.minimum(BLK_ROWS, count[e] - rb * BLK_ROWS), col
 
 
-def experts_plain(up: bool, tables, a, rows, meta, w0, w1, out):
+def experts_plain(up: bool, tables, a, rows, meta, order, w0, w1, out):
     """The claimed tiles of one loop, in table order, into ``out``.
 
     ``a``: x (T, K) with ``rows`` (R,) the token of each sorted row (up), or
     h (R, K) with ``rows`` None (down); ``w0``/``w1`` W_gate/W_up (up) or
-    W_down twice (down), (E, N, K); ``meta`` host (3, E); ``out`` (R, N).
+    W_down twice (down), (E, N, K); ``meta`` host (3, E); ``order`` host
+    (N,), the tile of each claimed iteration; ``out`` (R, N).
     """
     from repro_torch.device.persistent import ClaimTables
 
-    tiles = ClaimTables(*tables).tiles()
+    tiles = np.asarray(order)[ClaimTables(*tables).tiles()]
     cols = UP_COLS if up else DOWN_COLS
     for e, r0, n, c in zip(*_tile_decode(meta, tiles)):
         e, r0, n, c = int(e), int(r0), int(n), int(c)
@@ -73,9 +76,10 @@ def experts_plain(up: bool, tables, a, rows, meta, w0, w1, out):
     return out
 
 
-def experts_cuda(up: bool, tables, a, rows, meta, w0, w1, out):
+def experts_cuda(up: bool, tables, a, rows, meta, order, w0, w1, out):
     """Launch one loop's persistent kernel over its claim tables (on the
-    card); ``meta`` on the card."""
+    card); ``meta`` and ``order`` (the tile of each claimed iteration) on
+    the card."""
     from repro_torch.device.persistent import ClaimTables
 
     tables = ClaimTables(*tables)
@@ -92,12 +96,13 @@ def experts_cuda(up: bool, tables, a, rows, meta, w0, w1, out):
         raise ValueError(f"a's rows have {a.shape[1]} columns, the weights take {K}")
     if rows is not None:
         _build.require_cuda(rows, "rows", torch.int32)
+    _build.require_cuda(order, "order", torch.int32, (order.numel(),))
     c_int, c_ptr = ctypes.c_int, ctypes.c_void_p
     fn = _build.function("moe_experts", "repro_moe_experts", c_int, c_int, *([c_ptr] * 4),
-                         c_int, *([c_ptr] * 6), c_int, c_int, c_int, c_ptr)
+                         c_int, *([c_ptr] * 7), c_int, c_int, c_int, c_ptr)
     err = fn(a.device.index, int(up), *(_build.ptr(t) for t in tables), W, _build.ptr(a),
-             None if rows is None else _build.ptr(rows), _build.ptr(meta), _build.ptr(w0),
-             _build.ptr(w1), _build.ptr(out), E, N, K, _build.stream_of(a))
+             None if rows is None else _build.ptr(rows), _build.ptr(meta), _build.ptr(order),
+             _build.ptr(w0), _build.ptr(w1), _build.ptr(out), E, N, K, _build.stream_of(a))
     _build.check(err, f"moe experts {'up' if up else 'down'} kernel")
     _build.LAUNCHES["moe_experts_up" if up else "moe_experts_down"] += 1
     return out

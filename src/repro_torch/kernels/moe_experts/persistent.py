@@ -24,27 +24,40 @@ them -- and then every layer's claims and kernels are enqueued before the
 first schedule is read back.  The cost model (``expert_tiles``) is closed
 form over the counts: a tile costs its rows rounded up to wgmma's 64.
 
+A loop's iterations are not its tiles in that numbering: iteration j runs
+tile ``order[j]`` (``tile_order``).  The iterations ranked by when the
+claimed technique's chunks start them at unit cost (``unit_starts``) take
+the tiles of a raster in turn, so the workers running at one time share a
+few experts' weight panels in L2 instead of each reading its own; the
+claim runs on ``costs[order]``.  A layer's tile space and order are made
+on the host once its previous layer's kernels are enqueued, so only the
+first lies in the device's idle time after the read-back.
+
 Spans: the root ``repro_torch.moe_experts_persistent``; ``repro_torch.
 moe_route`` (every layer's routing through the read-back, counters
-``routed_rows`` and ``load_max``); ``repro_torch.moe_tile_costs`` (every
-loop's tile space and costs from the counts, on the host); a
-``repro_torch.moe_experts_up`` and ``repro_torch.moe_experts_down`` a
-layer, each holding its claim's spans, with counters ``expert_tiles`` (N)
-and ``tile_rows`` (the rows of its row blocks rounded up to 64: what a
-column block's tiles compute, padding included).
+``routed_rows`` and ``load_max``); a ``repro_torch.moe_experts_up`` and
+``repro_torch.moe_experts_down`` a layer, each holding its claim's spans,
+with counters ``expert_tiles`` (N), ``tile_rows`` (the rows of its row
+blocks rounded up to 64: what a column block's tiles compute, padding
+included) and ``live_panels`` (``live_panels``); the up span holds
+``repro_torch.moe_tile_order`` (the layer's tile spaces, costs and
+orders), the down span too where its tile space differs.
 """
 from __future__ import annotations
 
+import heapq
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core.chunk_calculus import plan
+from repro_torch.device.chunk_calculus import host_spec
 from repro_torch.spans import count, span
 
 from ..flash_attention.ops import placed, refuse_grad
-from .kernel import (BLK_ROWS, DOWN_COLS, K_PANEL, UP_COLS, WGMMA_ROWS, combine_cuda,
-                     combine_plain, experts_cuda, experts_plain)
+from .kernel import (BLK_ROWS, DOWN_COLS, K_PANEL, UP_COLS, WGMMA_ROWS, _tile_decode,
+                     combine_cuda, combine_plain, experts_cuda, experts_plain)
 
 #: ``routed_scaling_factor``: null in MiMo-V2-Flash's config, so 1.0
 ROUTED_SCALE = 1.0
@@ -52,12 +65,15 @@ ROUTED_SCALE = 1.0
 
 class MoeLayerOut(NamedTuple):
     """One layer's result: the held experts' partial sum (T, d) in x's type,
-    the two loops' schedules (None when no assignment is held), and the
-    selected experts (T, top_k) of every token, held or not."""
+    the two loops' schedules (None when no assignment is held), the
+    selected experts (T, top_k) of every token, held or not, and the two
+    loops' tile orders (``tile_order``: iteration -> tile; None with the
+    schedules)."""
 
     out: torch.Tensor
     schedules: Optional[Tuple[object, object]]
     experts: torch.Tensor
+    orders: Optional[Tuple[np.ndarray, np.ndarray]]
 
 
 def route(x, router_w, bias, top_k: int):
@@ -107,6 +123,66 @@ def expert_tiles(counts, ncol: int):
     costs[(first[:, None] + nblk[:, None] * np.arange(1, ncol + 1) - 1).ravel()] = np.repeat(
         last, ncol)
     return costs, meta, int(((nblk - 1) * BLK_ROWS + last).sum())
+
+
+def unit_starts(technique: str, N: int, P: int) -> np.ndarray:
+    """When each of a loop's ``N`` iterations starts if every one costs a
+    unit, (N,) int64: the technique's chunks (the host's float64 closed
+    forms) go in index order to the earliest free of ``P`` workers, ties to
+    the lowest index, as the protocol's walk hands them out, and an
+    iteration starts at its chunk's start plus its place in the chunk."""
+    sizes, starts = plan(host_spec(technique, N, P))
+    free, at = [(0, w) for w in range(P)], []  # (clock, worker): a heap already
+    for k in sizes.tolist():
+        t, w = free[0]
+        at.append(t)
+        heapq.heapreplace(free, (t + k, w))
+    return np.repeat(np.asarray(at, np.int64) - starts, sizes) + np.arange(N)
+
+
+def raster_group(P: int, ncol: int, row_bytes: int, panel_bytes: int) -> int:
+    """The column blocks G of a raster group: ``P`` tiles running together
+    on G column blocks read P / G row blocks and G weight panels, so G
+    minimises P / G x ``row_bytes`` + G x ``panel_bytes``, in [1, ncol]."""
+    g = np.arange(1, ncol + 1)
+    return int(g[np.argmin(P / g * row_bytes + g * panel_bytes)])
+
+
+def tile_order(starts, meta, ncol: int, group: int) -> np.ndarray:
+    """Iteration -> tile, (N,) int32: the iterations in the order of their
+    ``starts`` (stable) take the tiles of a grouped raster in turn -- expert
+    by expert, then a group of ``group`` column blocks, then row block,
+    then column block within the group -- so the tiles running at one time
+    share a few weight panels and row blocks.  A tile keeps its number in
+    ``expert_tiles``' numbering, which the kernels decode."""
+    _, rows, first = (np.asarray(m, np.int64) for m in meta)
+    nblk = -(-rows // BLK_ROWS)
+    e = np.repeat(np.arange(len(rows)), nblk * ncol)
+    local = np.arange(len(e)) - first[e]
+    col, rb = local // nblk[e], local % nblk[e]
+    g0 = col - col % group
+    raster = np.empty(len(e), np.int64)  # raster position -> tile
+    raster[first[e] + g0 * nblk[e] + rb * np.minimum(group, ncol - g0) + col - g0] = \
+        np.arange(len(e))
+    order = np.empty(len(e), np.int32)
+    order[np.argsort(starts, kind="stable")] = raster
+    return order
+
+
+def live_panels(starts, order, meta, ncol: int) -> int:
+    """The most distinct weight panels, (expert, column block), among the
+    tiles that start together, over 8 evenly spaced instants of the
+    unit-cost schedule (``starts`` from ``unit_starts``, ``order`` from
+    ``tile_order``): what the workers running at once read."""
+    makespan = int(starts.max()) + 1
+    instant = np.full(makespan, -1)  # each start's instant, -1 between them
+    instant[np.arange(8) * makespan // 8] = np.arange(8)
+    k = instant[starts]
+    j = np.flatnonzero(k >= 0)
+    e, _, _, col = _tile_decode(meta, order[j])
+    panels = len(meta[0]) * ncol
+    live = np.unique(k[j] * panels + e * ncol + col)
+    return int(np.bincount(live // panels).max())
 
 
 def _check_layer(layer, E_all: int, e0: int, e1: int, dtype):
@@ -180,45 +256,59 @@ def moe_experts_persistent(layers, *, experts=(0, 16), top_k: int = 8, technique
             count("routed_rows", int(counts.sum()))
             count("load_max", int(counts.max()))
 
-        with span("repro_torch.moe_tile_costs"):
-            spaces = [(expert_tiles(c, ff // UP_COLS), expert_tiles(c, d // DOWN_COLS))
-                      for c, (_, d, ff) in zip(counts, shapes)]
-        metas = None
-        if on_card:  # every loop's meta in one upload
-            with span("repro_torch.tables_upload"):
-                host = np.stack([m for up, down in spaces for m in (up[1], down[1])])
-                count("h2d_bytes", host.nbytes)
-                metas = torch.from_numpy(host).to(dev, non_blocking=True).view(
-                    len(layers), 2, *host.shape[1:])
-
         launched = []
         for i, ((x, _, _, w_gate, w_up, w_down), (ids, w, rows, pos, _), (T, d, ff)) in \
                 enumerate(zip(layers, routed, shapes)):
             R = int(counts[i].sum())
             out = torch.empty((T, d), dtype=x.dtype, device=dev)
             if R == 0:
-                launched.append((out.zero_(), None, ids))
+                launched.append((out.zero_(), None, None, ids))
                 continue
             h = torch.empty((R, ff), dtype=x.dtype, device=dev)
             y = torch.empty((R, d), dtype=x.dtype, device=dev)
-            finish = []
-            for up, name, (costs, meta, tile_rows), a, src, w0, w1, o in (
-                    (True, "repro_torch.moe_experts_up", spaces[i][0], x, rows, w_gate, w_up, h),
-                    (False, "repro_torch.moe_experts_down", spaces[i][1], h, None, w_down,
-                     w_down, y)):
+            finish, orders = [], []
+            # (column blocks, G) -> [costs in order, meta, tile_rows, order, live
+            # panels, meta and order on the card]: the down loop takes the up
+            # loop's where its tile space is alike
+            made = {}
+            # a tile reads a row block of BLK_ROWS rows of a and a panel of
+            # 2 x UP_COLS rows of the gate and up weights, or DOWN_COLS of down
+            for up, name, ncol, a, src, w0, w1, o, panel in (
+                    (True, "repro_torch.moe_experts_up", ff // UP_COLS, x, rows, w_gate, w_up, h,
+                     2 * UP_COLS),
+                    (False, "repro_torch.moe_experts_down", d // DOWN_COLS, h, None, w_down,
+                     w_down, y, DOWN_COLS)):
                 with span(name):
+                    k_bytes = a.shape[1] * a.element_size()
+                    key = ncol, raster_group(workers, ncol, BLK_ROWS * k_bytes, panel * k_bytes)
+                    if key not in made:
+                        with span("repro_torch.moe_tile_order"):
+                            costs, meta, tile_rows = expert_tiles(counts[i], ncol)
+                            starts = unit_starts(technique, len(costs), workers)
+                            order = tile_order(starts, meta, *key)
+                            made[key] = [costs[order], meta, tile_rows, order,
+                                         live_panels(starts, order, meta, ncol), None]
+                    costs, meta, tile_rows, order, panels, card = made[key]
                     count("expert_tiles", len(costs))
                     count("tile_rows", tile_rows)
-                    tables, fin = persistent_tables(technique, len(costs), workers,
-                                                    costs=costs, device=dev,
-                                                    what="expert tiles")
+                    count("live_panels", panels)
+                    tables, fin = persistent_tables(technique, len(costs), workers, costs=costs,
+                                                    device=dev, what="expert tiles")
                     if on_card:
-                        experts_cuda(up, tables, a, src, metas[i, 0 if up else 1], w0, w1, o)
+                        if card is None:  # behind the claim, whose csum upload waits anyway
+                            with span("repro_torch.tables_upload"):
+                                host = np.concatenate([meta.ravel(), order])
+                                count("h2d_bytes", host.nbytes)
+                                card = torch.from_numpy(host).to(dev, non_blocking=True)
+                                made[key][-1] = card
+                        experts_cuda(up, tables, a, src, card[:meta.size].view(meta.shape),
+                                     card[meta.size:], w0, w1, o)
                     else:
-                        experts_plain(up, tables, a, src, meta, w0, w1, o)
+                        experts_plain(up, tables, a, src, meta, order, w0, w1, o)
                     if not up:  # the layer's partial sum, behind its down loop
                         (combine_cuda if on_card else combine_plain)(pos, w, y, out)
                     finish.append(fin)
-            launched.append((out, finish, ids))
-        return [MoeLayerOut(out, None if fin is None else (fin[0](), fin[1]()), ids)
-                for out, fin, ids in launched]
+                    orders.append(order)
+            launched.append((out, finish, tuple(orders), ids))
+        return [MoeLayerOut(out, None if fin is None else (fin[0](), fin[1]()), ids, orders)
+                for out, fin, orders, ids in launched]
