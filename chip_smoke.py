@@ -56,7 +56,14 @@ protocol and applications through the port's public entry points:
      cell's limits and each loop's kernel and the combine to their plain
      versions on the layer's own schedules, then timed beside their bounds
      and ``torch._grouped_mm``: the ``moe_experts_up``, ``moe_experts_down``
-     and ``moe_combine`` rows;
+     and ``moe_combine`` rows; then ``mla_decode_persistent`` over one drain
+     of the benchmark cell ``deepseek-v3-mla.decode-longctx-gss`` (8 layers
+     of DeepSeek-V3's absorbed latent attention at its widths, 128
+     sequences of 4k-128k cached tokens, 2,536 split-KV tiles a layer),
+     every layer held to the benchmark's reference at the cell's limits and
+     both kernels to their plain versions on the layer's own schedule, then
+     timed beside their bounds: the ``mla_decode`` and
+     ``mla_decode_combine`` rows (no library: FlashMLA is not installed);
   8. mamba2-370m at full width (48 layers, d_model 1024, 32 SSD heads of
      dim 64, state 128; random weights from seed 0): ``api.forward`` on
      B=4 prompts of 2048 tokens with ``backend="pallas"`` (the SSD scan
@@ -183,7 +190,7 @@ protocol and applications through the port's public entry points:
      dls_processes.
 
 The launch counts are zeroed just before each path (2-5, 6, 7 and its
-hybrid and MoE stacks, 8, 10's run of the selected technique, 11, whose
+hybrid, MoE and MLA stacks, 8, 10's run of the selected technique, 11, whose
 worker processes count their own launches into shared memory, each model
 of 12, and 15's Mandelbrot example) and read just after.
 Every kernel is then held against its plain PyTorch version on the same
@@ -904,12 +911,11 @@ def moe_path(dev):
 
     from loopbench import harness
     from loopbench.drivers.moe_experts import Driver
-    from repro_torch.device.persistent import persistent_tables
+    from repro_torch.device.persistent import persistent_tables, predicted_starts
     from repro_torch.kernels import _build
     from repro_torch.kernels.moe_experts import kernel as moe
     from repro_torch.kernels.moe_experts.persistent import (
-        expert_tiles, live_panels, moe_experts_persistent, route, sort_assignments,
-        unit_starts)
+        expert_tiles, live_panels, moe_experts_persistent, route, sort_assignments)
 
     wl = harness.workload(MOE_CELL)
     drv = Driver({**wl["traffic"], "token_sets": 1}, harness.config(wl["config"]), 0, dev)
@@ -976,7 +982,7 @@ def moe_path(dev):
             moe.experts_cuda(up, ident_tables, a, src, meta_card, ident_card, w0, w1, ident_out)
             check(torch.equal(ident_out, out), f"moe layer {i}: {name} == the identity order's, "
                                                f"bit for bit")
-            starts = unit_starts(technique, N, drv.P)
+            starts = predicted_starts(technique, N, drv.P).clock
             row = {"live_panels": live_panels(starts, order, meta, ncol),
                    "live_panels_identity": live_panels(starts, ident, meta, ncol),
                    "ms": cuda_ms(lambda: moe.experts_cuda(up, card, a, src, meta_card,
@@ -1049,6 +1055,137 @@ def moe_path(dev):
             r["layers"] = orders[r["name"]]
     return rows_out
 
+
+
+MLA_CELL = "deepseek-v3-mla.decode-longctx-gss"  # the benchmark cell whose drain phase 7 runs
+MLA_SOURCE = "src/repro_torch/csrc/mla_decode.cu"
+# tests/test_torch_mla_decode.py's bars: partials within 1e-2 of the largest
+# |partial| (P rounded to bf16 before P.V), log-sum-exps within 1e-4, the
+# combine of the same partials within one bf16 step
+MLA_PARTIAL_BAR, MLA_LSE_ATOL, MLA_OUT_RTOL = 1e-2, 1e-4, 2 ** -7
+
+
+def mla_path(dev):
+    """Phase 7, DeepSeek-V3's latent attention in decode:
+    ``mla_decode_persistent`` over one drain of the benchmark cell (8 layers,
+    128 sequences of 4k-128k cached tokens, s_q 2, inputs from the cell's
+    driver at seed 0), its launches counted and every layer held to the
+    benchmark's reference at the cell's limits; then, on each layer's own
+    schedule and start order, the split-KV kernel against its plain version
+    (partials and log-sum-exps within the tests' bars), the combine against
+    its plain version on the kernel's partials, and the kernels' output,
+    expanded, against the entry's bit for bit; then layer 0's two kernels
+    timed beside their bounds and their plain versions on the card.  No
+    library runs here (FlashMLA, the yardstick, is not installed).  Returns
+    the two kernel rows."""
+    import numpy as np
+    import torch
+
+    from loopbench import harness
+    from loopbench.drivers.mla_decode import Driver
+    from loopbench.reference import mla_decode as ref
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.mla_decode import kernel as mla
+    from repro_torch.kernels.mla_decode.persistent import (
+        KV_CHUNK, absorb, expand, kv_tiles, softmax_scale)
+
+    wl = harness.workload(MLA_CELL)
+    drv = Driver({**wl["traffic"], "q_sets": 1}, harness.config(wl["config"]), 0, dev)
+    layers, lengths, table, s_q, H = drv.layers(0), drv.lengths, drv.table, drv.s_q, drv.H
+    torch.cuda.synchronize()
+
+    _build.reset_launches()
+    t_path = time.perf_counter()
+    got = drv.drain(0)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    L = len(layers)
+    want = {"protocol": L, "mla_decode": L, "mla_decode_combine": L}
+    print(f"mla path: {time.perf_counter() - t_path:.2f} s wall, launches "
+          f"{ {n: launches[n] for n in want} }")
+    for n, c in want.items():
+        check(launches[n] == c, f"mla path: {c} {n} launches, got {launches[n]}")
+    nums = drv.check([(0, got)])[0]
+    for key, limit in wl["limits"].items():
+        check(nums[key] <= limit, f"mla path: {key} {nums[key]!r} within the cell's {limit}")
+    print(f"mla path vs the benchmark's reference: {nums}")
+
+    _, _, cache0, _, _ = layers[0]
+    Dn, Dr = layers[0][0].shape[3], layers[0][1].shape[3]
+    Dl, Dv = cache0.shape[2] - Dr, layers[0][4].shape[1]
+    space = kv_tiles(lengths, s_q, H, cache0.shape[1], KV_CHUNK)
+    B, G, R = len(lengths), int(space.chunk0[-1]), s_q * H
+    seq = torch.from_numpy(np.concatenate([space.first, space.chunk0, lengths])
+                           .astype(np.int32)).to(dev)
+    chunk0 = seq[B + 1:2 * B + 2]
+    scale = softmax_scale(Dn + Dr)
+    err = {"mla_decode": 0.0, "mla_decode_combine": 0.0}
+    timed = None
+    for i, ((q_nope, q_pe, cache, w_uk, w_uv), res) in enumerate(zip(layers, got)):
+        check(res.schedule.N == len(space.costs), f"mla layer {i}: N == the closed form's tiles")
+        q = absorb(q_nope, q_pe, w_uk)
+        card, host = card_tables(res.schedule, dev), res.schedule.tables()
+        order = torch.from_numpy(res.order).to(dev)
+        part = torch.full((G, R, Dl), float("nan"), device=dev)
+        lse = torch.full((G, R), float("nan"), device=dev)
+        mla.decode_cuda(card, order, q, cache, table, seq, space, scale, part, lse)
+        plain_part, plain_lse = torch.zeros_like(part), torch.zeros_like(lse)
+        mla.decode_plain(host, res.order, q, cache, table, space, scale, plain_part, plain_lse)
+        d_part = float((part - plain_part).abs().max())
+        d_lse = float((lse - plain_lse).abs().max())
+        bar = MLA_PARTIAL_BAR * float(plain_part.abs().max())
+        check(d_part <= bar and d_lse <= MLA_LSE_ATOL,
+              f"mla layer {i}: mla_decode == plain within the bars (partials {d_part!r} of "
+              f"{bar!r}, lse {d_lse!r} of {MLA_LSE_ATOL})")
+        err["mla_decode"] = max(err["mla_decode"], d_part)
+        o_lat = mla.combine_cuda(part, lse, chunk0, torch.empty((B, s_q, H, Dl),
+                                                                 dtype=q.dtype, device=dev))
+        o_plain = mla.combine_plain(part, lse, space.chunk0, torch.empty_like(o_lat))
+        d = (o_lat.float() - o_plain.float()).abs()
+        check(bool((d <= 1e-6 + MLA_OUT_RTOL * o_plain.float().abs()).all()),
+              f"mla layer {i}: combine == plain within one bf16 step (max {float(d.max())!r})")
+        err["mla_decode_combine"] = max(err["mla_decode_combine"], float(d.max()))
+        check(torch.equal(expand(o_lat, w_uv), res.out),
+              f"mla layer {i}: the entry's out == the kernels' on its own schedule")
+        print(f"mla layer {i}: {len(space.costs)} tiles, {G} chunks; max |kernel - plain| "
+              f"partials {d_part!r}, lse {d_lse!r}, combine {float(d.max())!r}; out exact")
+        if i == 0:
+            timed = (card, host, order, res.order, q, cache, part, lse, o_lat)
+        del plain_part, plain_lse, o_plain, d
+        if i:
+            del part, lse, o_lat
+
+    card, host, order, order_host, q, cache, part, lse, o_lat = timed
+    # the split kernel reads its pages and q once and writes each chunk's
+    # partial and lse once; the combine reads those and writes o_lat once
+    pages = int((-(-np.asarray(lengths) // cache.shape[1])).sum())
+    partials = 4 * G * R * (Dl + 1)
+    work = {"mla_decode": (ref.layer_work(lengths, s_q, H, Dn, Dr, Dl, Dv, cache.shape[1])["ops"],
+                           q.element_size() * (pages * cache.shape[1] + B * R) * (Dl + Dr)
+                           + partials, BF16_FLOPS_PER_S),
+            "mla_decode_combine": (2.0 * G * R * Dl, partials + o_lat.element_size() * B * R * Dl,
+                                   F32_OPS_PER_S)}
+    runs = {"mla_decode": (
+                lambda: mla.decode_cuda(card, order, q, cache, table, seq, space, scale, part,
+                                        lse),
+                lambda: mla.decode_plain(host, order_host, q, cache, table, space, scale,
+                                         torch.empty_like(part), torch.empty_like(lse))),
+            "mla_decode_combine": (
+                lambda: mla.combine_cuda(part, lse, chunk0, o_lat),
+                lambda: mla.combine_plain(part, lse, space.chunk0, torch.empty_like(o_lat)))}
+    rows = []
+    for name, (run, plain_run) in runs.items():
+        ms = cuda_ms(run)
+        plain = cuda_ms(plain_run, reps=1, warmup=False)
+        ops, nbytes, rate = work[name]
+        b_ms = bound(nbytes, ops, rate)
+        print(f"time {name} (layer 0, {len(space.costs)} tiles): {ms!r} ms "
+              f"({ops / ms / 1e9!r} TFLOP/s; {100 * b_ms[0] / ms!r} % of the bound)")
+        rows.append(kernel_row(name, MLA_SOURCE, None, launches[name], err[name], ms, plain,
+                               b_ms, None))
+    for r in rows:
+        r.update(tiles_layer=len(space.costs), cached_tokens=int(np.sum(lengths)))
+    return rows
 
 def model_path(dev) -> int:
     """Phase 6: tinyllama-1.1b at full width through ``api.forward``; the two
@@ -3660,6 +3797,7 @@ def main() -> int:
     rows += attention_path(dev, P, static_launches=model_path(dev))
     rows += hybrid_path(dev, P)
     rows += moe_path(dev)
+    rows += mla_path(dev)
     t_ssm = time.perf_counter()
     rows.append(ssm_model_path(dev))
     print(f"ssm phase: {time.perf_counter() - t_ssm:.1f} s wall")

@@ -47,12 +47,13 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import heapq
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.chunk_calculus import max_steps_bound, tss_constants
+from repro_torch.core.chunk_calculus import max_steps_bound, plan, tss_constants
 from repro_torch.kernels import _build
 from repro_torch.spans import count, span
 
@@ -454,3 +455,63 @@ def schedule_timeline(schedule: DeviceSchedule, costs=None):
         clocks[w] = np.float32(clocks[w] + cost)
         t1s[r] = clocks[w]
     return t0s, t1s
+
+
+class Starts(NamedTuple):
+    """When each of a loop's iterations starts, ``clock`` (N,) int64, and on
+    which worker, ``worker`` (N,) int64 (``predicted_starts``)."""
+
+    clock: np.ndarray
+    worker: np.ndarray
+
+    def rank(self) -> np.ndarray:
+        """(N,) int32: each iteration's place in the order the iterations
+        start -- by clock, then worker; a worker's own in index order."""
+        rank = np.empty(len(self.clock), np.int32)
+        rank[np.lexsort((self.worker, self.clock))] = np.arange(len(rank), dtype=np.int32)
+        return rank
+
+
+def predicted_starts(technique: str, N: int, P: int, costs=None) -> Starts:
+    """The claim walk of a loop of ``N`` iterations on the host: the
+    technique's chunks (the host's float64 closed forms) go in index order
+    to the earliest free of ``P`` workers, ties to the lowest, as the
+    protocol kernel hands them out, and a worker runs its chunk's
+    iterations one after another.  The k-th iteration to start (``rank``)
+    lasts ``costs[k]``, whole units, or a unit where ``costs`` is None.
+
+    An entry that hands its tiles to the iterations in start order, tile k
+    to the k-th iteration to start, claims on those costs, and the
+    protocol's clocks then run as this walk predicts.
+    """
+    sizes, starts = plan(host_spec(technique, N, P))
+    if costs is None:  # a chunk's iterations follow its start one a unit
+        free, at, who = [(0, w) for w in range(P)], [], []  # (clock, worker): a heap already
+        for k in sizes.tolist():
+            t, w = free[0]
+            at.append(t)
+            who.append(w)
+            heapq.heapreplace(free, (t + k, w))
+        return Starts(np.repeat(np.asarray(at, np.int64) - starts, sizes) + np.arange(N),
+                      np.repeat(np.asarray(who, np.int64), sizes))
+    costs = np.asarray(costs, np.int64).tolist()
+    sizes, starts = sizes.tolist(), starts.tolist()
+    clock, worker = [0] * N, [0] * N
+    nxt, end = [0] * P, [0] * P  # each worker's next iteration and its claim's end
+    events = list(range(P))      # clock x P + worker: a heap already, ties to the lowest
+    claim = k = 0
+    while events:
+        key = events[0]
+        w = key % P
+        j = nxt[w]
+        if j == end[w]:          # the earliest free worker claims the next chunk
+            if claim == len(sizes):
+                heapq.heappop(events)
+                continue
+            j, end[w] = starts[claim], starts[claim] + sizes[claim]
+            claim += 1
+        clock[j], worker[j] = key // P, w
+        nxt[w] = j + 1
+        heapq.heapreplace(events, key + costs[k] * P)
+        k += 1
+    return Starts(np.asarray(clock, np.int64), np.asarray(worker, np.int64))

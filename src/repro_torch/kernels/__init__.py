@@ -13,10 +13,13 @@ Port of ``repro.kernels``, all four of its kernel packages:
   ssd_scan        -- the Mamba2 SSD chunked scan (state carried across
                      chunks), the SSM model's forward and prefill
 
-and one with no counterpart there:
+and two with no counterpart there:
 
   moe_experts     -- the routed experts of an expert-parallel MoE layer,
                      dropless, as two self-scheduled loops a layer
+  mla_decode      -- latent attention (MLA) in decode, absorbed, over a
+                     paged latent cache: split-KV tiles as one
+                     self-scheduled loop a layer, then their combine
 
 Each entry point runs on the card unless given CPU tensors or
 ``device="cpu"``, where the kernel's plain PyTorch version runs.  The CUDA
@@ -28,6 +31,7 @@ from .flash_attention.persistent import (  # noqa: F401
     flash_attention_persistent, hybrid_attention_persistent)
 from .mandelbrot.ops import mandelbrot, mandelbrot_ref  # noqa: F401
 from .mandelbrot.persistent import mandelbrot_persistent  # noqa: F401
+from .mla_decode.persistent import mla_decode_persistent  # noqa: F401
 from .moe_experts.persistent import moe_experts_persistent  # noqa: F401
 from .spin_image.ops import spin_images, spin_images_oracle  # noqa: F401
 from .ssd_scan.ops import ssd_scan, ssd_scan_oracle  # noqa: F401

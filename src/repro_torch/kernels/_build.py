@@ -43,6 +43,7 @@ SOURCES = {
     "flash_attention": "flash_attention.cu",
     "ssd_scan": "ssd_scan.cu",
     "moe_experts": "moe_experts.cu",
+    "mla_decode": "mla_decode.cu",
 }
 
 NVCC_FLAGS = (
@@ -66,6 +67,8 @@ LAUNCHES: Dict[str, int] = {
     "moe_experts_up": 0,  # a layer's gate/up loop ...
     "moe_experts_down": 0,  # ... its down loop
     "moe_combine": 0,  # ... and its partial sum
+    "mla_decode": 0,  # a latent-attention layer's split-KV loop ...
+    "mla_decode_combine": 0,  # ... and the merge of its chunks
 }
 
 #: library name -> nvcc's output (``-Xptxas -v``: registers, shared memory)

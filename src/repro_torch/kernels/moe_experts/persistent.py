@@ -26,10 +26,10 @@ form over the counts: a tile costs its rows rounded up to wgmma's 64.
 
 A loop's iterations are not its tiles in that numbering: iteration j runs
 tile ``order[j]`` (``tile_order``).  The iterations ranked by when the
-claimed technique's chunks start them at unit cost (``unit_starts``) take
-the tiles of a raster in turn, so the workers running at one time share a
-few experts' weight panels in L2 instead of each reading its own; the
-claim runs on ``costs[order]``.  A layer's tile space and order are made
+claimed technique's chunks start them at unit cost (the claim layer's
+``predicted_starts``) take the tiles of a raster in turn, so the workers
+running at one time share a few experts' weight panels in L2 instead of
+each reading its own; the claim runs on ``costs[order]``.  A layer's tile space and order are made
 on the host once its previous layer's kernels are enqueued, so only the
 first lies in the device's idle time after the read-back.
 
@@ -45,14 +45,11 @@ orders), the down span too where its tile space differs.
 """
 from __future__ import annotations
 
-import heapq
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.chunk_calculus import plan
-from repro_torch.device.chunk_calculus import host_spec
 from repro_torch.spans import count, span
 
 from ..flash_attention.ops import placed, refuse_grad
@@ -125,21 +122,6 @@ def expert_tiles(counts, ncol: int):
     return costs, meta, int(((nblk - 1) * BLK_ROWS + last).sum())
 
 
-def unit_starts(technique: str, N: int, P: int) -> np.ndarray:
-    """When each of a loop's ``N`` iterations starts if every one costs a
-    unit, (N,) int64: the technique's chunks (the host's float64 closed
-    forms) go in index order to the earliest free of ``P`` workers, ties to
-    the lowest index, as the protocol's walk hands them out, and an
-    iteration starts at its chunk's start plus its place in the chunk."""
-    sizes, starts = plan(host_spec(technique, N, P))
-    free, at = [(0, w) for w in range(P)], []  # (clock, worker): a heap already
-    for k in sizes.tolist():
-        t, w = free[0]
-        at.append(t)
-        heapq.heapreplace(free, (t + k, w))
-    return np.repeat(np.asarray(at, np.int64) - starts, sizes) + np.arange(N)
-
-
 def raster_group(P: int, ncol: int, row_bytes: int, panel_bytes: int) -> int:
     """The column blocks G of a raster group: ``P`` tiles running together
     on G column blocks read P / G row blocks and G weight panels, so G
@@ -172,7 +154,7 @@ def tile_order(starts, meta, ncol: int, group: int) -> np.ndarray:
 def live_panels(starts, order, meta, ncol: int) -> int:
     """The most distinct weight panels, (expert, column block), among the
     tiles that start together, over 8 evenly spaced instants of the
-    unit-cost schedule (``starts`` from ``unit_starts``, ``order`` from
+    unit-cost schedule (``starts`` from ``predicted_starts``, ``order`` from
     ``tile_order``): what the workers running at once read."""
     makespan = int(starts.max()) + 1
     instant = np.full(makespan, -1)  # each start's instant, -1 between them
@@ -225,7 +207,7 @@ def moe_experts_persistent(layers, *, experts=(0, 16), top_k: int = 8, technique
     kernel and the experts' kernels) or, for CPU tensors, their plain
     versions.  Not differentiable (``ops.refuse_grad``).
     """
-    from repro_torch.device.persistent import persistent_tables
+    from repro_torch.device.persistent import persistent_tables, predicted_starts
 
     with span("repro_torch.moe_experts_persistent"):
         layers = [tuple(layer) for layer in layers]
@@ -284,7 +266,7 @@ def moe_experts_persistent(layers, *, experts=(0, 16), top_k: int = 8, technique
                     if key not in made:
                         with span("repro_torch.moe_tile_order"):
                             costs, meta, tile_rows = expert_tiles(counts[i], ncol)
-                            starts = unit_starts(technique, len(costs), workers)
+                            starts = predicted_starts(technique, len(costs), workers).clock
                             order = tile_order(starts, meta, *key)
                             made[key] = [costs[order], meta, tile_rows, order,
                                          live_panels(starts, order, meta, ncol), None]

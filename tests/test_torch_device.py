@@ -792,3 +792,35 @@ def test_claim_tables_fail_planted_faults(planted_protocol, fault, monkeypatch):
     finally:
         monkeypatch.undo()
         _build.function.cache_clear()
+
+
+@pytest.mark.parametrize("N,P", [(1, 4), (37, 40), (513, 3), (1000, 16)])
+@pytest.mark.parametrize("technique", ["static", "ss", "gss", "tss", "fac2"])
+def test_predicted_starts_at_unit_cost_equal_costs_of_ones(technique, N, P):
+    """The walk without costs (a chunk at a time) is the walk an iteration
+    at a time with every cost a unit."""
+    unit = tdev.persistent.predicted_starts(technique, N, P)
+    ones = tdev.persistent.predicted_starts(technique, N, P, np.ones(N))
+    assert unit.clock.dtype == np.int64 and unit.worker.dtype == np.int64
+    assert np.array_equal(unit.clock, ones.clock) and np.array_equal(unit.worker, ones.worker)
+    assert np.array_equal(np.sort(unit.rank()), np.arange(N))
+
+
+@pytest.mark.parametrize("N,P", [(37, 40), (513, 3), (1000, 16)])
+@pytest.mark.parametrize("technique", ["static", "ss", "gss", "tss", "fac2"])
+def test_predicted_starts_follow_the_protocols_clocks(technique, N, P):
+    """Costs handed out in start order (the k-th iteration to start lasts
+    ``costs[k]``, zeros included): the plain protocol claimed on them gives
+    each chunk to the predicted worker at the predicted clock, and the
+    iterations of a worker start in index order."""
+    costs = np.random.default_rng(N + P).integers(0, 9, N).astype(np.float64)
+    got = tdev.persistent.predicted_starts(technique, N, P, costs)
+    rank = got.rank()
+    by_iteration = costs[rank]
+    sched = tdev.claim_schedule(technique, N, P, costs=by_iteration, device="cpu")
+    t0, _ = tdev.schedule_timeline(sched, by_iteration)
+    assert np.array_equal(got.worker[sched.starts], sched.workers)
+    assert np.array_equal(got.clock[sched.starts], t0)
+    for s, n in zip(sched.starts, sched.sizes):
+        at = got.clock[s] + np.concatenate([[0], np.cumsum(by_iteration[s:s + n - 1])])
+        assert np.array_equal(got.clock[s:s + n], at)

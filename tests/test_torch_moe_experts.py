@@ -19,12 +19,12 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import spans
-from repro_torch.device.persistent import claim_schedule, schedule_timeline
+from repro_torch.device.persistent import claim_schedule, predicted_starts, schedule_timeline
 from repro_torch.kernels import _build
 from repro_torch.kernels.moe_experts import kernel as moe_kernel
 from repro_torch.kernels.moe_experts.persistent import (
     expert_tiles, live_panels, moe_experts_persistent, raster_group, route, sort_assignments,
-    tile_order, unit_starts)
+    tile_order)
 
 import _moe_experts_ref as ref
 from _torch_support import require_card
@@ -97,7 +97,8 @@ def test_entry_orders_each_loop_on_its_own_tile_space():
     for sched, order, ncol in zip(res.schedules, res.orders, (ff // 128, d // 256)):
         costs, meta, _ = expert_tiles(loads, ncol)
         assert sched.N == len(costs)
-        assert np.array_equal(order, tile_order(unit_starts("gss", len(costs), 4), meta, ncol,
+        starts = predicted_starts("gss", len(costs), 4).clock
+        assert np.array_equal(order, tile_order(starts, meta, ncol,
                                                 raster_group(4, ncol, 128, 256)))
     assert len(res.orders[0]) != len(res.orders[1])
     _close(res.out, _held_reference(layer, res.experts, HELD[0]))
@@ -174,7 +175,7 @@ def test_tile_order_is_a_permutation_of_the_tiles(technique, ncol, P):
     raster built one tile at a time."""
     costs, meta, _ = expert_tiles(ODD_LOADS, ncol)
     N = len(costs)
-    starts = unit_starts(technique, N, P)
+    starts = predicted_starts(technique, N, P).clock
     for group in (1, 2, ncol):
         order = tile_order(starts, meta, ncol, group)
         assert order.dtype == np.int32 and np.array_equal(np.sort(order), np.arange(N))
@@ -193,7 +194,7 @@ def test_unit_starts_follow_the_plain_claim_loop(technique, N, P):
     sched = claim_schedule(technique, N, P, device="cpu")
     t0, _ = schedule_timeline(sched)
     want = np.repeat(t0 - sched.starts, sched.sizes) + np.arange(N)
-    got = unit_starts(technique, N, P)
+    got = predicted_starts(technique, N, P).clock
     assert got.dtype == np.int64 and np.array_equal(got, want)
     assert np.array_equal(np.argsort(got, kind="stable"), np.argsort(want, kind="stable"))
 
@@ -217,7 +218,7 @@ def test_order_cuts_the_live_panels_at_cell_loads(technique):
     numbering expert, column block, row block gives them."""
     ncol = 16
     costs, meta, _ = expert_tiles(_cell_loads(), ncol)
-    starts = unit_starts(technique, len(costs), 132)
+    starts = predicted_starts(technique, len(costs), 132).clock
     order = tile_order(starts, meta, ncol, raster_group(132, ncol, 128, 256))
     new = live_panels(starts, order, meta, ncol)
     old = live_panels(starts, np.arange(len(costs)), meta, ncol)
@@ -229,9 +230,9 @@ def test_live_panels_counts_the_tiles_that_start_together():
     4 tiles start at 0, so 4 panels under the numbering and the raster of
     G = 1 alike; 2 workers start at 0 and 1: 2 panels."""
     costs, meta, _ = expert_tiles([100, 100], 2)
-    for order in (np.arange(4), tile_order(unit_starts("static", 4, 4), meta, 2, 1)):
-        assert live_panels(unit_starts("static", 4, 4), order, meta, 2) == 4
-    starts = unit_starts("static", 4, 2)
+    for order in (np.arange(4), tile_order(predicted_starts("static", 4, 4).clock, meta, 2, 1)):
+        assert live_panels(predicted_starts("static", 4, 4).clock, order, meta, 2) == 4
+    starts = predicted_starts("static", 4, 2).clock
     assert starts.tolist() == [0, 1, 0, 1]
     assert live_panels(starts, np.arange(4), meta, 2) == 2
 
@@ -251,7 +252,7 @@ def test_plain_loops_give_the_same_bits_in_any_order(technique):
                                            (False, h, None, w_down, w_down, d, d // 256)):
         costs, meta, _ = expert_tiles(counts.numpy(), ncol)
         N = len(costs)
-        order = tile_order(unit_starts(technique, N, 3), meta, ncol, 2)
+        order = tile_order(predicted_starts(technique, N, 3).clock, meta, ncol, 2)
         shuffled = np.random.default_rng(0).permutation(N).astype(np.int32)
         tables = claim_schedule(technique, N, 3, costs=costs[order], device="cpu").tables()
         got = [moe_kernel.experts_plain(up, tables, a, src, meta, o, w0, w1,
@@ -287,7 +288,7 @@ def test_plain_loop_runs_the_tiles_the_order_names():
     rows, _, counts = sort_assignments(experts, *HELD)
     R = int(counts.sum())
     costs, meta, _ = expert_tiles(counts.numpy(), 2)
-    order = tile_order(unit_starts("gss", len(costs), 3), meta, 2, 2)
+    order = tile_order(predicted_starts("gss", len(costs), 3).clock, meta, 2, 2)
     tables = claim_schedule("gss", len(costs), 3, costs=costs[order], device="cpu").tables()
     whole, half = (moe_kernel.experts_plain(True, tables, x, rows, meta, o, w_gate, w_up,
                                             torch.full((R, 256), float("nan")))
@@ -343,8 +344,8 @@ def test_spans_one_root_a_route_and_a_loop_pair_each_layer():
     for i, res in enumerate(got):
         up, down = kids[1 + 2 * i:3 + 2 * i]
         costs, _, tile_rows = expert_tiles(loads[i], FF // 128)
-        live = [live_panels(unit_starts("gss", s.N, 3), order, expert_tiles(loads[i], ncol)[1],
-                            ncol)
+        live = [live_panels(predicted_starts("gss", s.N, 3).clock, order,
+                            expert_tiles(loads[i], ncol)[1], ncol)
                 for s, order, ncol in zip(res.schedules, res.orders, (FF // 128, D // 256))]
         assert up.counts == {"expert_tiles": res.schedules[0].N, "tile_rows": tile_rows,
                              "live_panels": live[0]}
@@ -417,7 +418,8 @@ def test_tiles_claimed_on_the_closed_form_costs():
     for sched, order, ncol in zip(res.schedules, res.orders, (FF // 128, D // 256)):
         costs, meta, _ = expert_tiles(loads.numpy(), ncol)
         # a row block's 128 rows against a tile's 256 panel rows, per byte of K
-        assert np.array_equal(order, tile_order(unit_starts("gss", len(costs), 3), meta, ncol,
+        starts = predicted_starts("gss", len(costs), 3).clock
+        assert np.array_equal(order, tile_order(starts, meta, ncol,
                                                 raster_group(3, ncol, 128, 256)))
         want = claim_schedule("gss", len(costs), 3, costs=costs[order], device="cpu")
         for f in ("workers", "starts", "sizes"):
@@ -487,7 +489,7 @@ def test_kernels_match_plain_at_published_widths(technique):
 def _pub_order(technique, costs, meta, ncol, P=132):
     """The entry's tile order of a loop at the published widths (both
     loops: a row block of 128 rows against a panel of 256)."""
-    return tile_order(unit_starts(technique, len(costs), P), meta, ncol,
+    return tile_order(predicted_starts(technique, len(costs), P).clock, meta, ncol,
                       raster_group(P, ncol, 128, 256))
 
 
