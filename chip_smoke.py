@@ -17,11 +17,15 @@ protocol and applications through the port's public entry points:
      CUDA-event time per wrapper call, as every other row);
   3. the static Mandelbrot kernel at 4096x4096, CT 2000;
   4. the persistent Mandelbrot kernel over the gss, fac2 and ss schedules
-     passed in (host-built claim tables) and claimed by the entry itself
-     (the claim tables built on the card behind the protocol kernel, held
-     exactly to the host's tables of the same schedule, there and at the
-     paper's 1152x1152 one-pixel ss loop; then timed, the ``claim_tables``
-     row beside numpy and a ``torch.sort`` version), then, timed, each
+     passed in (host-built claim tables) and claimed by its own CTAs (the
+     claiming kernel: its image held to the static kernel's and its grants
+     to the closed forms, there and at the paper's 1152x1152 one-pixel ss
+     loop); the claim
+     tables built on the card behind the protocol kernel, held exactly to
+     the host's tables of the same schedule, there and at the paper's
+     1152x1152 one-pixel ss loop; then timed, the ``claim_tables`` row
+     beside numpy and a ``torch.sort`` version, and the claiming kernel's
+     time at both loops; then, timed, each
      worker's busy time alone against its modeled clock: the "workers"
      lines);
   5. PSIA spin images: 800,000 points (the paper's object size) and 8,192
@@ -3476,8 +3480,10 @@ def main() -> int:
         _build, mandelbrot, mandelbrot_persistent, mandelbrot_ref, spin_images,
         spin_images_oracle)
     from repro_torch.kernels.mandelbrot.persistent import (
-        _persistent_cuda, _persistent_plain, mandelbrot_tile_costs)
+        _claiming_cuda, _persistent_cuda, _persistent_plain, mandelbrot_tile_costs)
     from repro_torch.kernels.spin_image.ref import spin_pair_counts
+
+    from loopbench.reference.closed_forms import check_schedule
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -3522,9 +3528,9 @@ def main() -> int:
     persistent = {t: mandelbrot_persistent(
         IMG, ct=CT, block_h=TILE, block_w=TILE, workers=P, schedule=schedules[t])[0]
         for t in schedules}
-    # the entry's own claim: the protocol, table and compute kernels on one stream
+    # the entry's own claim: the CTAs claim inside the compute kernel
     claimed = {t: mandelbrot_persistent(IMG, ct=CT, block_h=TILE, block_w=TILE, workers=P,
-                                        technique=t, costs=costs)
+                                        technique=t)
                for t in schedules}
     spins = spin_images(points, normals, N_IMAGES, img_width=IMG_W,
                         bin_size=BIN, support_angle=SUPPORT)
@@ -3532,8 +3538,8 @@ def main() -> int:
     main_s = time.perf_counter() - t_main
     launches = dict(_build.LAUNCHES)
     print(f"main path: {main_s:.2f} s wall, launches {launches}")
-    for k in ("window_fetch_add", "protocol", "claim_tables", "mandelbrot_static",
-              "mandelbrot_persistent", "spin_image"):
+    for k in ("window_fetch_add", "protocol", "mandelbrot_static",
+              "mandelbrot_persistent", "mandelbrot_persistent_claiming", "spin_image"):
         check(launches[k] > 0, f"kernel {k} was not launched on the main path")
 
     err = {}  # kernel -> max |kernel - plain| over this run's outputs
@@ -3593,9 +3599,13 @@ def main() -> int:
         check(torch.equal(out, image), f"persistent ({t}) == static exactly")
     for t, (out, sched) in claimed.items():
         check(torch.equal(out, image), f"persistent ({t}, claimed by the entry) == static")
-        for f in ("steps", "workers", "starts", "sizes", "counts", "clocks"):
-            check(np.array_equal(getattr(sched, f), getattr(schedules[t], f)),
-                  f"{t}: the entry's schedule {f} == claim_schedule's")
+        errs = check_schedule(sched.steps, sched.starts, sched.sizes, t, N, P)
+        check(errs == {"partition_errors": 0, "chunk_errors": 0} and int(sched.slab[1]) >= N
+              and np.array_equal(sched.counts, np.bincount(sched.workers, minlength=P)),
+              f"{t}: the kernel's own claims partition the tiles by the closed forms ({errs})")
+        print(f"mandelbrot persistent ({t}, claimed in the kernel): {sched.n_steps} grants "
+              f"(claim_schedule: {schedules[t].n_steps}); busy ms "
+              f"{float(sched.clocks.min())!r}..{float(sched.clocks.max())!r}")
     tabs = schedules["gss"].tables()
     pers_plain = _persistent_plain(*tabs, width=IMG, height=IMG,
                                    ct=CT, xlim=(-2.0, 1.0), ylim=(-1.5, 1.5),
@@ -3618,6 +3628,26 @@ def main() -> int:
           "persistent (ss, 1x1 tiles) == plain")
     print(f"mandelbrot persistent over {PIXELS}x{PIXELS} CT {PIXEL_CT} in 1x1 tiles (ss, "
           f"{pixel_sched.n_steps} claims; packed onto lanes) == static exactly; == plain")
+    # the same loop claimed by the CTAs themselves (the claiming kernel's
+    # packed path: batches of steps a pair of fetch-adds, rows placed by a
+    # fetch-add), read back through the entry
+    before = _build.LAUNCHES["mandelbrot_persistent_claiming"]
+    pixel_claimed, pixel_own = mandelbrot_persistent(PIXELS, ct=PIXEL_CT, block_h=1, block_w=1,
+                                                     technique="ss", workers=P)
+    check(_build.LAUNCHES["mandelbrot_persistent_claiming"] == before + 1,
+          "the paper's loop: one claiming kernel launch")
+    check(torch.equal(pixel_claimed, pixel_image),
+          "persistent (ss, 1x1 tiles, claimed in the kernel) == static exactly")
+    errs = check_schedule(pixel_own.steps, pixel_own.starts, pixel_own.sizes, "ss",
+                          PIXELS * PIXELS, P)
+    check(errs == {"partition_errors": 0, "chunk_errors": 0}
+          and pixel_own.n_steps == PIXELS * PIXELS
+          and int(pixel_own.slab[1]) >= PIXELS * PIXELS
+          and np.array_equal(pixel_own.counts, np.bincount(pixel_own.workers, minlength=P)),
+          f"the paper's loop: the kernel's own claims partition the pixels by ss ({errs})")
+    print(f"mandelbrot persistent over {PIXELS}x{PIXELS} (ss, claimed in the kernel): "
+          f"{pixel_own.n_steps} grants == static exactly, closed forms {errs}; busy ms "
+          f"{float(pixel_own.clocks.min())!r}..{float(pixel_own.clocks.max())!r}")
     # the card's claim tables against the host's, at the main path's shapes
     # and at the paper's one-pixel ss loop (1,327,104 grants, many rank chunks)
     table_cases = {t: (t, N, costs) for t in schedules}
@@ -3680,9 +3710,12 @@ def main() -> int:
     # protocol: the gss launch of the main path, CUDA-event time per wrapper
     # call, each call from fresh counters (two slots of one zeroed slab a call)
     protocol_sass()
-    # phase 2's drains and its gss (513, 3) one; claim_schedule's and the entry's
-    check(launches["protocol"] == len(TECHNIQUES) + 1 + 2 * len(schedules),
-          "the main path's protocol launches")
+    # phase 2's drains and its gss (513, 3) one, and claim_schedule's; the
+    # entry claims inside its compute kernel, with no protocol launch
+    check(launches["protocol"] == len(TECHNIQUES) + 1 + len(schedules)
+          and launches["mandelbrot_persistent"] == len(schedules)
+          and launches["mandelbrot_persistent_claiming"] == len(schedules),
+          f"the main path's protocol and persistent Mandelbrot launches ({launches})")
     spec = host_spec("gss", N, P)
     S = int(max_steps_bound(spec))
     kw = dict(technique="gss", N=N, P=P, chunk=1, max_chunk=None, S=S,
@@ -3775,6 +3808,19 @@ def main() -> int:
     rows[-1].update(ms_fac2=pers_ms["fac2"], ms_ss=pers_ms["ss"],
                     schedule_bound_ms=sched_bound, ms_pixels_ss=pixel_ms,
                     bound_ms_pixels_ss=pixel_bound)
+    # the claiming kernel, its CTAs claiming as they run (its rows' fill
+    # included, not their copy back): fac2 over the tiles, ss over the pixels
+    claiming_ms = {
+        "fac2": cuda_ms(lambda: _claiming_cuda("fac2", N, P, 1, width=IMG, height=IMG, ct=CT,
+                                               xlim=(-2.0, 1.0), ylim=(-1.5, 1.5), block_h=TILE,
+                                               block_w=TILE, gw=IMG // TILE, device=dev)[0]),
+        "pixels ss": cuda_ms(lambda: _claiming_cuda("ss", PIXELS * PIXELS, P, 1,
+                                                    **pixel_kw)[0])}
+    print(f"time mandelbrot_persistent claiming in the kernel: fac2 over the tiles "
+          f"{claiming_ms['fac2']!r} ms (tables: {pers_ms['fac2']!r}); ss over {PIXELS}x{PIXELS} "
+          f"pixels {claiming_ms['pixels ss']!r} ms (tables: {pixel_ms!r})")
+    rows[-1].update(ms_claiming_fac2=claiming_ms["fac2"],
+                    ms_claiming_pixels_ss=claiming_ms["pixels ss"])
 
     spin_ops = SPIN_OPS_PER_PAIR * pairs["pairs"] + SPIN_OPS_K_PAIR * pairs["k"]
     spin_bytes = 24 * N_POINTS + 4 * N_IMAGES * IMG_W * IMG_W

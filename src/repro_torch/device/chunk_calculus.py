@@ -177,3 +177,17 @@ def plan_device(technique: str, N: int, P: int, chunk: int = 1,
     n_valid = (sizes > 0).sum(dtype=torch.int32)
     return sizes, starts, n_valid
 
+
+def claim_batch(hint: int, remaining: int, P: int, max_claims: int, max_iters: int) -> int:
+    """The steps a claimant takes with one pair of fetch-adds: one of m on
+    ``i``, then one of the m chunks' summed K' on ``lp`` -- m claims of one
+    claimant with no other between them, a legal order of the protocol.
+
+    At most ``max_claims``; at most ``max_iters`` iterations by ``hint``, a
+    K' the claimant has seen (the closed forms never grow K' from step to
+    step, so the batch's chunks are no larger); at most the ``remaining``
+    iterations' share of the ``P`` claimants, so that the last batches spread
+    over them; at least one.  The host's copy of ``claim_batch`` in
+    ``csrc/mandelbrot.cu``, which the claiming Mandelbrot kernel runs.
+    """
+    return max(1, min(max_claims, max_iters // hint, remaining // (P * hint)))

@@ -27,7 +27,10 @@ per-iteration cost model).  This is "the next claim is taken by the
 earliest-free block", made deterministic; the persistent *compute* kernels
 (kernels/*/persistent.py) then execute the schedule with real parallel
 CTAs.  This walk is the kernel's one sequential part: one warp, the clocks
-in its registers.
+in its registers.  The Mandelbrot entry on the card needs no walk: its
+compute kernel's CTAs claim for themselves on the slab, and their real
+clocks make the assignment (``kernels/mandelbrot/persistent.py``); it reads
+its schedule back through ``PendingClaim`` all the same.
 
 ``claim_schedule`` launches the kernel for a CUDA slab and runs the plain
 version (``_claim_loop_plain``, the reference's loop step by step in tensor
@@ -70,10 +73,19 @@ class DeviceSchedule:
     """A fully-materialized device-made schedule (+ the mutated slab).
 
     ``steps/workers/starts/sizes`` are the granted claims in protocol
-    order; ``counts``/``clocks`` are the per-block claim counts and
-    modeled busy clocks the report plane surfaces; ``slab`` is the
-    window slab *after* the kernel ran -- the very tensor passed in,
-    updated in place.
+    order; ``counts`` are the per-block claim counts the report plane
+    surfaces; ``slab`` is the window slab *after* the kernel ran -- the very
+    tensor passed in, updated in place.
+
+    ``clocks`` depends on who claimed.  The protocol kernel and its plain
+    version (``claim_schedule``, and the entries that claim through
+    ``persistent_tables``) fill it with each worker's modeled busy time, the
+    f32 sum of its chunks' costs under the caller's cost model, and assign
+    each chunk to the earliest-free worker by those clocks.  A compute kernel
+    whose CTAs claim for themselves (``mandelbrot_persistent`` on the card)
+    fills it with each CTA's measured busy time in ms, from its first claim
+    to its last pixel written, and the rows are in the order the kernel
+    placed them: the real clocks set the assignment, and no cost is modeled.
     """
 
     technique: str
@@ -94,12 +106,13 @@ class DeviceSchedule:
 
     @property
     def n_rmw(self) -> int:
-        """The protocol's RMWs: two fetch-adds a step (made by the kernel on
-        its on-chip image of the slab)."""
+        """The protocol's RMWs: two fetch-adds a step (made by the protocol
+        kernel on its on-chip image of the slab; a claiming kernel makes one
+        pair for each batch of consecutive steps of one claimant)."""
         return 2 * self.n_steps
 
     def makespan(self) -> float:
-        """Modeled finish time of the busiest worker."""
+        """Finish time of the busiest worker, on ``clocks``' scale."""
         return float(self.clocks.max()) if len(self.clocks) else 0.0
 
     def tables(self) -> ClaimTables:
@@ -168,22 +181,30 @@ class PendingClaim:
     """A claim loop that has run (CPU) or is enqueued (CUDA), read back later.
 
     On the card the schedule's copy back into pinned memory is enqueued
-    behind the protocol kernel at once; ``read_back`` waits for that copy
-    alone, so work the caller enqueues in between (the table kernel, a
-    compute kernel) runs while the host slices the schedule.
+    behind the kernel that wrote it at once; ``read_back`` waits for that
+    copy alone, so work the caller enqueues in between (the table kernel, a
+    compute kernel) runs while the host slices the schedule.  ``flat``, the
+    one buffer that sched, counts and clocks are views of, may hold more ints
+    after clocks (a claiming kernel's bookkeeping); they come back in the same
+    copy, as ``trailer()``.  ``counted``: the first of them is the number of
+    granted rows (a claiming kernel's grant counter), so ``read_back`` takes
+    it instead of scanning the rows, and its columns are views of one
+    contiguous slice of the pinned copy, which the schedule keeps alive.
     """
 
-    def __init__(self, technique, N, P, chunk, slab, sched, clocks, counts, flat=None):
+    def __init__(self, technique, N, P, chunk, slab, sched, clocks, counts, flat=None,
+                 counted=False):
         self.technique, self.N, self.P, self.chunk, self.slab = technique, N, P, chunk, slab
         self._sched, self._counts = sched, counts
         self._host = (sched, counts, clocks)
-        self._copied = None
+        self._copied, self._counted = None, counted
         if flat is not None:  # on the card: the three in one buffer, one copy
             host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
             host.copy_(flat, non_blocking=True)
             self._copied = torch.cuda.Event()
             self._copied.record(torch.cuda.current_stream(flat.device))
             self._host = _split_outputs(host, int(sched.shape[0]), P)
+            self._trailer = host[4 * int(sched.shape[0]) + 2 * P:]
 
     def tables(self) -> ClaimTables:
         """Launch the table kernels on the protocol kernel's stream (CUDA)."""
@@ -206,6 +227,11 @@ class PendingClaim:
         count("tables_on_card", 1)
         return tables
 
+    def trailer(self) -> np.ndarray:
+        """The ints of ``flat`` past clocks, from the same copy; call after
+        ``read_back`` (on the card only)."""
+        return self._trailer.numpy()
+
     def read_back(self) -> DeviceSchedule:
         """The schedule; on the card the host waits here for its copy, which
         follows the protocol kernel."""
@@ -215,19 +241,23 @@ class PendingClaim:
             sched, counts, clocks = (t.numpy() for t in self._host)
             if self._copied is not None:
                 count("d2h_bytes", sched.nbytes + counts.nbytes + clocks.nbytes)
-        n = int((sched[:, 1] >= 0).sum())  # granted rows form a prefix
+        if self._counted:
+            steps, workers, starts, sizes = sched[:int(self.trailer()[0])].T
+        else:
+            n = int((sched[:, 1] >= 0).sum())  # granted rows form a prefix
+            steps, workers, starts, sizes = (sched[:n, j].copy() for j in range(4))
         return DeviceSchedule(
             technique=self.technique, N=self.N, P=self.P, chunk=self.chunk,
-            steps=sched[:n, 0].copy(), workers=sched[:n, 1].copy(),
-            starts=sched[:n, 2].copy(), sizes=sched[:n, 3].copy(),
+            steps=steps, workers=workers, starts=starts, sizes=sizes,
             counts=counts.astype(np.int64), clocks=clocks.copy(), slab=self.slab)
 
 
 def _split_outputs(flat: torch.Tensor, S: int, P: int):
     """The protocol kernel's (sched (S, 4), counts (P,), clocks (P,)), views
-    of its one int32 output buffer."""
+    of its one int32 output buffer (a claiming kernel's: the same, then two
+    bookkeeping ints)."""
     return (flat[:4 * S].view(S, 4), flat[4 * S:4 * S + P],
-            flat[4 * S + P:].view(torch.float32))
+            flat[4 * S + P:4 * S + 2 * P].view(torch.float32))
 
 
 def cost_prefix_sum(costs, N: int) -> np.ndarray:

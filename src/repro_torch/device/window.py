@@ -12,7 +12,11 @@ Tiers (``capability_tier()``):
                 current stream and returns the old value -- the counterpart
                 of the reference's jitted aliased slab update.  The protocol
                 kernel writes its claims back to the same slab with the same
-                atomics, one fetch-add on each counter a launch.
+                atomics, one fetch-add on each counter a launch.  The
+                claiming Mandelbrot kernel (``csrc/mandelbrot.cu``) is the
+                tier's concurrent claimant: its CTAs claim on one slab while
+                they run, each claim two ``atomicAdd`` in device memory, on i
+                and then on lp, as the paper's passive-target fetch-adds.
   ``interpret`` CPU: the plain version, a lock plus an index update on a CPU
                 slab, byte-exact with the kernel.
 

@@ -57,7 +57,8 @@ LAUNCHES: Dict[str, int] = {
     "protocol": 0,
     "claim_tables": 0,
     "mandelbrot_static": 0,
-    "mandelbrot_persistent": 0,
+    "mandelbrot_persistent": 0,  # the table kernel ...
+    "mandelbrot_persistent_claiming": 0,  # ... and the one whose CTAs claim for themselves
     "spin_image": 0,
     "flash_attention": 0,
     "flash_attention_persistent": 0,  # the (W, W) instances

@@ -45,6 +45,26 @@ def require_card():
         pytest.skip(f"needs nvcc to build the kernels: {e}")
 
 
+def schedule_errors(steps, starts, sizes, technique, N, P):
+    """(partition_errors, chunk_errors) of granted rows, as the benchmark's
+    ``check_schedule`` counts them, by the host's float64 closed forms:
+    grants of nothing, gaps or overlaps of [0, N) in order of start; sizes
+    other than min(K'_i, N - start), and steps granted twice."""
+    from repro_torch.core.chunk_calculus import chunk_sizes_closed
+    from repro_torch.device.chunk_calculus import host_spec
+
+    steps, starts, sizes = (np.asarray(a, np.int64) for a in (steps, starts, sizes))
+    if len(sizes) == 0:
+        return 1, 0
+    order = np.argsort(starts, kind="stable")
+    s, z = starts[order], sizes[order]
+    ends = np.concatenate([[0], s + z])
+    partition = int((z <= 0).sum()) + int((s != ends[:-1]).sum()) + int(ends[-1] != N)
+    expect = np.minimum(chunk_sizes_closed(host_spec(technique, N, P), steps), N - starts)
+    chunk = int((sizes != expect).sum()) + int(len(steps) - len(np.unique(steps)))
+    return partition, chunk
+
+
 def cloud(n, seed=0):
     """The point cloud of tests/test_kernels.py: normal points, unit normals."""
     rng = np.random.default_rng(seed)

@@ -20,7 +20,7 @@ import repro_torch.kernels as tk
 from repro_torch.kernels.mandelbrot.persistent import mandelbrot_tile_costs
 from repro_torch.kernels.mandelbrot.ref import geometry
 
-from _torch_support import cloud, require_card
+from _torch_support import cloud, require_card, schedule_errors
 from _torch_support import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
@@ -110,7 +110,17 @@ def test_mirrors_follow_the_kernel_source():
     assert int(const("kPatchH")) == PATCH_H and const("kPatchW") == "32 / kPatchH"
     assert int(const("kPackClaims")) == PACK_CLAIMS
     assert "return block_h * block_w < kThreads;" in src
-    assert src.count("packs_tiles(block_h, block_w)") == 2  # the kernel and its launch
+    # the table kernel, the claiming kernel and their launches
+    assert src.count("packs_tiles(block_h, block_w)") == 4
+    # the entry's copies, the limits of tests/test_torch_claiming.py's claim rule
+    from repro_torch.kernels.mandelbrot import persistent
+
+    assert persistent.THREADS == THREADS and persistent.PACK_BATCH == PACK_CLAIMS * THREADS
+    # the claiming kernel's batch: claim_batch with these limits, the Python
+    # copy's arguments in the same order
+    assert "constexpr int kBatch = kPackClaims * kThreads;" in src
+    assert "claim_batch(hint, left, cp.P, kBatch, kBatch / tile_px)" in src
+    assert "int claim_batch(int hint, int remaining, int P, int max_claims," in src
 
 
 def _persistent_pixels(nclaims, first, starts, sizes, *, gw, bh, bw, width, height):
@@ -552,7 +562,7 @@ def test_launch_on_another_card_keeps_the_current_device():
     require_card()
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA devices")
-    from repro_torch.device import DeviceWindow, claim_schedule
+    from repro_torch.device import DeviceWindow
 
     torch.cuda.set_device(0)
     pts, nrm = cloud(256)
@@ -569,5 +579,6 @@ def test_launch_on_another_card_keeps_the_current_device():
                                                    device="cpu"))
     assert torch.equal(img.cpu(), tk.mandelbrot(64, ct=40, device="cpu"))
     assert torch.equal(out, img)
-    plain = claim_schedule("gss", sched.N, 3, device="cpu")
-    assert np.array_equal(sched.sizes, plain.sizes)
+    # the CTAs claimed the tiles themselves, by the closed forms
+    assert schedule_errors(sched.steps, sched.starts, sched.sizes, "gss", sched.N, 3) == (0, 0)
+    assert int(sched.slab[1]) >= sched.N

@@ -249,6 +249,21 @@ def variant_source(src: str, helpers: str, body: str) -> str:
     return src[:start] + helpers + HEAD + body + "\n" + src[end:]
 
 
+def test_variants_replace_the_table_kernel_alone():
+    """A variant's body takes the place of the table kernel, whose signature
+    HEAD keeps, and keeps the claiming kernel that stands before it (its
+    launch is in every variant too)."""
+    src = (_build.CSRC / "mandelbrot.cu").read_text()
+    at = src.index("__global__ void __launch_bounds__(kThreads)\nmandelbrot_persistent_kernel")
+    assert src[at:].startswith(HEAD[:HEAD.index(" {\n") + 3])
+    body = "    (void)n;\n    (void)at;\n}\n"
+    var = variant_source(src, "", body)
+    assert var.count(HEAD) == 1 and var.count(body) == 1
+    assert var.count("mandelbrot_persistent_kernel_claiming(") == 1  # the kernel
+    assert var.count("mandelbrot_persistent_kernel_claiming<<<") == 1  # its launch
+    assert var[var.index("}  // namespace"):] == src[src.index("}  // namespace"):]
+
+
 @pytest.mark.cuda
 def test_persistent_bodies_equal_static_and_are_timed(tmp_path):
     require_card()

@@ -182,23 +182,31 @@ def test_card_counts_each_copys_bytes_and_one_launch_each(entry):
     recs, _, (out, sched) = _profiled(entry, "cuda", (ProfilerActivity.CPU,
                                                       ProfilerActivity.CUDA))
     torch.cuda.synchronize()
-    # one launch each; the claim tables are three kernels
-    for kernel, n in (("protocol", 1), ("claim_tables", 3), (compute, 1)):
-        assert _build.LAUNCHES[kernel] == launches[kernel] + n, kernel
     by_name = {r.name: r for r in recs}
     root = by_name[ROOTS[entry]]
     N, P = sched.N, sched.P
-    S = int(max_steps_bound(host_spec(sched.technique, N, P, 1, None)))
-    B = 2 if entry == "attention" else 0
     h2d = sum(r.counts.get("h2d_bytes", 0) for r in recs)
     d2h = sum(r.counts.get("d2h_bytes", 0) for r in recs)
+    # the host waits for the schedule's copy after the compute launch
+    assert by_name["repro_torch.claim_schedule.readback"].parent == root.index
+    if entry == "mandelbrot":
+        # the kernel claims for itself: no protocol or table kernel, nothing
+        # goes up, its N rows (one a grant at most) come back
+        for kernel, n in (("protocol", 0), ("claim_tables", 0), (compute, 0),
+                          ("mandelbrot_persistent_claiming", 1)):
+            assert _build.LAUNCHES[kernel] == launches[kernel] + n, kernel
+        assert h2d == 0 and d2h == N * 16 + P * 8
+        assert root.counts["kernel_claims"] == sched.n_steps
+        assert "repro_torch.worker_lists" not in by_name
+        assert "repro_torch.claim_schedule" not in by_name
+        return
+    # one launch each; the claim tables are three kernels
+    for kernel, n in (("protocol", 1), ("claim_tables", 3), (compute, 1)):
+        assert _build.LAUNCHES[kernel] == launches[kernel] + n, kernel
+    S = int(max_steps_bound(host_spec(sched.technique, N, P, 1, None)))
+    B = 2
     # the card builds the tables: the cost prefix sum and `lengths` go up
     assert h2d == (N + 1) * 4 + B * 4
     assert d2h == S * 16 + P * 8
     assert by_name["repro_torch.worker_lists"].counts == {"tables_on_card": 1}
-    # the host waits for the schedule's copy after the compute launch
-    assert by_name["repro_torch.claim_schedule.readback"].parent == root.index
-    if entry == "attention":
-        assert by_name["repro_torch.tables_upload"].counts == {"h2d_bytes": B * 4}
-    else:
-        assert "repro_torch.tables_upload" not in by_name
+    assert by_name["repro_torch.tables_upload"].counts == {"h2d_bytes": B * 4}
